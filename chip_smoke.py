@@ -21,10 +21,28 @@ exits non-zero:
    the reference options) through tpinn_torch.cases.poiseuille_flow.main,
    with the launch counts read around it, held against the same round run
    through the plain versions on the CPU;
-5. times of both kernels and their plain versions at 1,000, 262,144 and
-   1,048,576 points in float32 and float64 (CUDA events around 20
-   back-to-back calls at 1,000 points and around single calls above,
-   median of 10 such runs).
+5. times of the NS kernels and their plain versions at 1,000, 262,144 and
+   1,048,576 points, and of the Poisson kernels at 200, 262,144 and
+   1,048,576 points, in float32 and float64 (CUDA events around 20
+   back-to-back calls at the small size and around single calls above,
+   median of 10 such runs);
+6. kernel 3 (poisson_residual_bwd) against its plain version in float64:
+   widths 2-20-20-20-1 at n = 200, n = 4099 masked to n_valid = 4000, and
+   normalization 3; loss and MSE at rtol 1e-11, dW/db at rtol 1e-9 /
+   atol 1e-12; repeat calls bit-identical; the float32 error against
+   float64;
+7. kernel 4 (poisson_residual_fwd) at the same bars, its MSE bit-identical
+   to kernel 3's, and poisson_residual_mse's gradient (kernel 4 forward,
+   kernel 3 backward) against autograd;
+8. the slice: both Poisson cases through tpinn_torch.cases.poisson.main
+   (Adam 100 epochs, L-BFGS-B 100 iterations) and poisson_misto.main (Adam
+   100, L-BFGS-B 50), float64, each with the launch counts read around it
+   and held against the same case run through the plain versions on the
+   CPU: the Adam round at 1e-8, the L-BFGS-B round's first 20 iterations at
+   1e-8 and its final global loss at 5 % (L-BFGS-B amplifies rounding about
+   tenfold per ten iterations, so later log points follow another
+   trajectory; PERF.md section 2); the cost of one scipy function
+   evaluation and of its two host/device copies.
 
 The line before the last is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.
@@ -46,7 +64,15 @@ PEAK_FLOPS = {"float64": 67e12, "float32": 67e12}
 PEAK_BYTES = 3.35e12
 WIDTHS = (32, 32, 32)
 SIZES = (1000, 262_144, 1_048_576)
+POISSON_WIDTHS = (2, 20, 20, 20, 1)
+POISSON_SIZES = (200, 262_144, 1_048_576)
 REPS = 10
+# L-BFGS-B rounds: the history of the first 20 iterations at the Adam bar;
+# after that the two runs follow different trajectories (L-BFGS-B amplifies
+# rounding about tenfold per ten iterations), so the whole round is held by
+# its final global loss (PERF.md section 2)
+SCIPY_HEAD_ITERS = 20
+FINAL_LOSS_BAR = 0.05
 
 
 def phase(name):
@@ -91,6 +117,80 @@ def ns_flops_per_point(widths, d_in, bwd):
         if l > 0:
             f += 2 * S * wi * wo
     return f
+
+
+def poisson_flops_per_point(widths, bwd):
+    """Floating-point operations one point needs in the Poisson-residual
+    kernels, counted like ``ns_flops_per_point``: the hidden layers carry
+    all five streams (value, two gradient and two Hessian-diagonal streams);
+    at the scalar head only the two Hessian-diagonal streams are needed,
+    forward and backward (the other head cotangents are structural zeros),
+    and the head bias gets no gradient."""
+    d_in, S = 2, 5
+    L = len(widths) - 1
+    f = 0
+    for l in range(L):
+        wi, wo = widths[l], widths[l + 1]
+        if l == L - 1:
+            f += 2 * 2 * wi * wo
+            continue
+        f += (2 * wi * wo if l == 0 else 2 * S * wi * wo) + wo
+        f += wo * (1 + 2 + 2 + d_in + 2 * (3 if l == 0 else 5))
+    f += 5  # r = (h_x + h_y + f)·scale, r², the sum
+    if not bwd:
+        return f
+    f += 3  # c = ḡ·(2/n)·r·scale
+    for l in range(L - 1, -1, -1):
+        wi, wo = widths[l], widths[l + 1]
+        if l == L - 1:
+            f += 2 * 2 * wi * wo * (2 if l > 0 else 1)
+            continue
+        f += wo * (6 + 1 + 3 * d_in + 2 * (7 if l > 0 else 5)
+                   + d_in + 2 * 3 + 2)
+        f += (3 * wi * wo if l == 0 else 2 * S * wi * wo) + wo
+        if l > 0:
+            f += 2 * S * wi * wo
+    return f
+
+
+def poisson_problem(n, seed, dtype, device):
+    """Seeded 2-20-20-20-1 params, points in (0, 2π)² and the forcing."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    params = random_params(rng, POISSON_WIDTHS, dtype, device)
+    x = torch.tensor(rng.uniform(0.0, 2 * np.pi, (n, 2)), dtype=dtype,
+                     device=device)
+    f = 2.0 * torch.sin(x[:, 0]) * torch.sin(x[:, 1])
+    return params, x, f
+
+
+def bound(n_ops, n_bytes, dname):
+    """(bound ms, what bounds it) from the operations and bytes of a call."""
+    t_ops = 1e3 * n_ops / PEAK_FLOPS[dname]
+    t_bytes = 1e3 * n_bytes / PEAK_BYTES
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def rel_dev(h_ref, h, sel):
+    """Largest relative deviation of every logged value of two histories
+    at the log-point indices ``sel``."""
+    import numpy as np
+
+    series = [(h_ref.loss_global, h.loss_global)]
+    for group in ("losses", "losses_test"):
+        ref, got = getattr(h_ref, group), getattr(h, group)
+        series += [(ref[k]["log"], got[k]["log"]) for k in ref]
+    return max(float(np.max(np.abs(np.array(b)[sel] - np.array(a)[sel])
+                            / np.abs(np.array(a)[sel]))) for a, b in series)
+
+
+def leaves_of(params):
+    """Fresh leaf copies of params that require grad, and their flat list."""
+    fl = [p.clone().requires_grad_(True) for p in flat(params)]
+    return [{"kernel": fl[i], "bias": fl[i + 1]}
+            for i in range(0, len(fl), 2)], fl
 
 
 def random_params(rng, widths, dtype, device):
@@ -183,6 +283,24 @@ def cuda_ms(fn, inner, reps=REPS, warmup=2):
     return times[len(times) // 2]
 
 
+def host_ms(fn, reps=50, warmup=3):
+    """Milliseconds per call of ``fn`` on the host clock, the median over
+    ``reps`` calls, each ended by a device synchronisation."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    times.sort()
+    return times[len(times) // 2]
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--out", default=None,
@@ -213,10 +331,11 @@ def main():
         print(f"torch {torch.__version__} cuda {torch.version.cuda} "
               f"python {sys.version.split()[0]}")
         info = build.build()
-        build.library()
-        print(f"nvcc build: {info.seconds:.2f} s "
+        print(f"nvcc build: {info.seconds:.2f} s, all sources at once "
               f"({'compiled' if info.compiled else 'cached'}) -> "
-              f"{os.path.relpath(info.path)}")
+              + ", ".join(os.path.relpath(p) for p in info.paths.values()))
+        for source in build.SOURCES:
+            build.library(source)
         for line in info.log.splitlines():
             if "Used" in line or "spill" in line:
                 print("  ptxas:", line.strip())
@@ -227,7 +346,7 @@ def main():
 
     f64 = torch.float64
     w3 = (10.0, 1.0, 1.0)
-    errs = {"ns_residual_bwd": 0.0, "ns_residual_fwd": 0.0}
+    errs = {k: 0.0 for k in mb.LAUNCHES}
 
     with phase("2 kernel 1 (ns_residual_bwd) vs plain, float64"):
         cases = [("steady n=1000", 2, 1000, None),
@@ -353,9 +472,7 @@ def main():
             for n in SIZES:
                 params, x, physics, norm = problem(2, n, 7, dtype, dev)
                 gbar = torch.tensor(w3, dtype=dtype, device=dev)
-                fl = [p.clone().requires_grad_(True) for p in flat(params)]
-                pl = [{"kernel": fl[i], "bias": fl[i + 1]}
-                      for i in range(0, len(fl), 2)]
+                pl, fl = leaves_of(params)
 
                 def plain_bwd():
                     loss, _ = mb.ns_residual_weighted_obj_plain(
@@ -377,48 +494,241 @@ def main():
                 }
                 widths = (2,) + WIDTHS + (3,)
                 item = x.element_size()
+                n_par = sum((a + 1) * b for a, b in zip(widths[:-1], widths[1:]))
                 for k, bwd in (("bwd", True), ("fwd", False)):
                     ops = n * ns_flops_per_point(widths, 2, bwd)
-                    nbytes = item * (n * 2 + sum((a + 1) * b for a, b in
-                                                 zip(widths[:-1], widths[1:])))
-                    if bwd:
-                        nbytes += item * (3 + sum((a + 1) * b for a, b in
-                                                  zip(widths[:-1], widths[1:])) + 4)
-                    else:
-                        nbytes += item * 3
-                    t_ops = 1e3 * ops / PEAK_FLOPS[dname]
-                    t_bytes = 1e3 * nbytes / PEAK_BYTES
-                    row[f"{k}_bound"] = max(t_ops, t_bytes)
-                    row[f"{k}_bound_by"] = ("operations" if t_ops >= t_bytes
-                                            else "bytes")
+                    nbytes = item * (n * 2 + n_par + 3 + (n_par + 4 if bwd else 0))
+                    row[f"{k}_bound"], row[f"{k}_bound_by"] = bound(
+                        ops, nbytes, dname)
                     row[f"{k}_flops_per_point"] = ops / n
-                times[(dname, n)] = row
-                print(f"  {dname} n={n}: bwd {row['bwd']:.4f} ms (bound "
+                times[("ns", dname, n)] = row
+                print(f"  NS {dname} n={n}: bwd {row['bwd']:.4f} ms (bound "
                       f"{row['bwd_bound']:.4f}, plain {row['plain_bwd']:.4f}); "
                       f"fwd {row['fwd']:.4f} ms (bound {row['fwd_bound']:.4f}, "
                       f"plain {row['plain_fwd']:.4f})", flush=True)
                 del params, x, fl, pl
                 torch.cuda.empty_cache()
-        record["times"] = {f"{d} {n}": r for (d, n), r in times.items()}
+            for n in POISSON_SIZES:
+                params, x, f = poisson_problem(n, 7, dtype, dev)
+                gbar = torch.tensor([2.0], dtype=dtype, device=dev)
+                pl, fl = leaves_of(params)
 
-    main_row = times[("float64", 1000)]
+                def plain_bwd():
+                    loss, _ = mb.poisson_residual_weighted_obj_plain(
+                        pl, x, f, 2.0)
+                    torch.autograd.grad(loss, fl, materialize_grads=True)
+
+                def plain_fwd():
+                    with torch.no_grad():
+                        mb.poisson_residual_mse_plain(params, x, f)
+
+                inner = 20 if n <= 10_000 else 1
+                row = {
+                    "bwd": cuda_ms(lambda: mb.poisson_residual_bwd(
+                        params, x, f, gbar, with_loss=True), inner),
+                    "fwd": cuda_ms(lambda: mb.poisson_residual_fwd(
+                        params, x, f), inner),
+                    "plain_bwd": cuda_ms(plain_bwd, inner),
+                    "plain_fwd": cuda_ms(plain_fwd, inner),
+                }
+                item = x.element_size()
+                n_par = sum((a + 1) * b for a, b in
+                            zip(POISSON_WIDTHS[:-1], POISSON_WIDTHS[1:]))
+                for k, bwd in (("bwd", True), ("fwd", False)):
+                    ops = n * poisson_flops_per_point(POISSON_WIDTHS, bwd)
+                    nbytes = item * (n * 3 + n_par + 1 + (n_par + 1 if bwd else 0))
+                    row[f"{k}_bound"], row[f"{k}_bound_by"] = bound(
+                        ops, nbytes, dname)
+                    row[f"{k}_flops_per_point"] = ops / n
+                times[("poisson", dname, n)] = row
+                print(f"  Poisson {dname} n={n}: bwd {row['bwd']:.4f} ms "
+                      f"(bound {row['bwd_bound']:.5f}, plain "
+                      f"{row['plain_bwd']:.4f}); fwd {row['fwd']:.4f} ms "
+                      f"(bound {row['fwd_bound']:.5f}, plain "
+                      f"{row['plain_fwd']:.4f})", flush=True)
+                del params, x, f, fl, pl
+                torch.cuda.empty_cache()
+        record["times"] = {" ".join(map(str, k)): r for k, r in times.items()}
+
+    with phase("6 kernel 3 (poisson_residual_bwd) vs plain, float64"):
+        p_cases = [("n=200", 200, None, 1.0),
+                   ("masked n=4099 n_valid=4000", 4099, 4000, 1.0),
+                   ("n=200 normalization 3", 200, None, 3.0)]
+        for name, n, n_valid, norm_c in p_cases:
+            params, x, f = poisson_problem(n, 11, f64, dev)
+            gbar = torch.tensor([2.0], dtype=f64, device=dev)
+            dp, mse, loss = mb.poisson_residual_bwd(
+                params, x, f, gbar, norm_c, n_valid, n_valid, with_loss=True)
+            torch.cuda.synchronize()
+            pl, fl = leaves_of(params)
+            loss_p, mse_p = mb.poisson_residual_weighted_obj_plain(
+                pl, x, f, 2.0, norm_c, n_valid, n_valid)
+            grads_p = torch.autograd.grad(loss_p, fl, materialize_grads=True)
+            e_l = check_close(f"{name} loss", loss, loss_p.detach(), 1e-11)
+            e_m = check_close(f"{name} mse", mse, mse_p, 1e-11)
+            e_g = max(check_close(f"{name} grad {i}", g, gp, 1e-9, 1e-12)
+                      for i, (g, gp) in enumerate(zip(flat(dp), grads_p)))
+            dp2, mse2, loss2 = mb.poisson_residual_bwd(
+                params, x, f, gbar, norm_c, n_valid, n_valid, with_loss=True)
+            if not (torch.equal(loss, loss2) and torch.equal(mse, mse2)
+                    and all(torch.equal(a, b)
+                            for a, b in zip(flat(dp), flat(dp2)))):
+                raise AssertionError(f"{name}: repeat call not bit-identical")
+            print(f"  {name}: loss rel {rel(loss, loss_p.detach()):.2e}, "
+                  f"mse rel {rel(mse, mse_p):.2e}, grads max abs {e_g:.2e}, "
+                  f"repeat bit-identical")
+            if name == "n=200":
+                errs["poisson_residual_bwd"] = max(e_l, e_m, e_g)
+            p32 = [{k: t.float() for k, t in p.items()} for p in params]
+            dp32, m32, l32 = mb.poisson_residual_bwd(
+                p32, x.float(), f.float(), gbar.float(), norm_c, n_valid,
+                n_valid, with_loss=True)
+            g_scale = max(float(torch.max(torch.abs(g))) for g in flat(dp))
+            g_err = max(float(torch.max(torch.abs(a.double() - b)))
+                        for a, b in zip(flat(dp32), flat(dp))) / g_scale
+            if not all(bool(torch.isfinite(t).all()) for t in flat(dp32)):
+                raise AssertionError(f"{name}: float32 grads not finite")
+            print(f"  {name}: float32 vs float64: loss rel "
+                  f"{rel(l32.double(), loss):.2e}, grads max abs / max|g| "
+                  f"{g_err:.2e}")
+            record[f"f32_err poisson {name}"] = [rel(l32.double(), loss), g_err]
+
+    with phase("7 kernel 4 (poisson_residual_fwd) vs plain, float64"):
+        for name, n, n_valid, norm_c in p_cases:
+            params, x, f = poisson_problem(n, 11, f64, dev)
+            m4 = mb.poisson_residual_fwd(params, x, f, norm_c, n_valid, n_valid)
+            m_p = mb.poisson_residual_mse_plain(params, x, f, norm_c, n_valid,
+                                                n_valid)
+            e = check_close(f"{name} fwd mse", m4, m_p, 1e-11)
+            gbar = torch.tensor([2.0], dtype=f64, device=dev)
+            _, m3, _ = mb.poisson_residual_bwd(params, x, f, gbar, norm_c,
+                                               n_valid, n_valid)
+            if not torch.equal(m4, m3):
+                raise AssertionError(f"{name}: kernel 4's MSE is not kernel "
+                                     f"3's bit for bit ({float(m4)!r} vs "
+                                     f"{float(m3)!r})")
+            pl, fl = leaves_of(params)
+            g_k = torch.autograd.grad(
+                0.5 * mb.poisson_residual_mse(pl, x, f, norm_c, n_valid,
+                                              n_valid), fl)
+            g_p = torch.autograd.grad(
+                0.5 * mb.poisson_residual_mse_plain(pl, x, f, norm_c, n_valid,
+                                                    n_valid), fl,
+                materialize_grads=True)
+            e_g = max(check_close(f"{name} mse grad {i}", a, b, 1e-9, 1e-12)
+                      for i, (a, b) in enumerate(zip(g_k, g_p)))
+            print(f"  {name}: mse rel {rel(m4, m_p):.2e}, bit-identical to "
+                  f"kernel 3, poisson_residual_mse grads max abs {e_g:.2e}")
+            if name == "n=200":
+                errs["poisson_residual_fwd"] = e
+
+    with phase("8 the slice: Poisson cases, Adam 100 + L-BFGS-B, float64"):
+        from tpinn_torch.cases import poisson, poisson_misto
+
+        slices = {}
+        for case, epochs in ((poisson, 100), (poisson_misto, 50)):
+            name = case.__name__.rsplit(".", 1)[1]
+            with tempfile.TemporaryDirectory() as td:
+                mb.reset_launch_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                pb, model = case.main(epochs, out_dir=td, device="cuda")
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                counts = dict(mb.LAUNCHES)
+                written = sorted(os.listdir(os.path.join(td, "Images")))
+            h = pb.history
+            n_bwd, n_fwd = (counts["poisson_residual_bwd"],
+                            counts["poisson_residual_fwd"])
+            print(f"  {name}: launches {counts}; {n_bwd - 100} scipy "
+                  f"function evaluations; wall {wall:.2f} s (Adam "
+                  f"{1e3 * h.wall_times[0] / 100:.2f} ms/epoch, L-BFGS-B "
+                  f"{1e3 * h.wall_times[1] / max(n_bwd - 100, 1):.2f} ms per "
+                  f"evaluation, logging included); wrote {written}")
+            if n_bwd <= 100 or n_fwd < 1 or counts["ns_residual_bwd"]:
+                raise AssertionError(f"{name}: main path missed a kernel: "
+                                     f"{counts}")
+            logs = [h.loss_global] + [e["log"] for e in h.losses.values()] \
+                + [e["log"] for e in h.losses_test.values()]
+            if not all(np.isfinite(v).all() for v in logs):
+                raise AssertionError(f"{name}: non-finite logged loss")
+            if not h.loss_global[-1] < h.loss_global[0]:
+                raise AssertionError(f"{name}: loss did not fall")
+            if h.round_names != ["keras_Adam", "scipy_L-BFGS-B"]:
+                raise AssertionError(f"{name}: rounds {h.round_names}")
+            with tempfile.TemporaryDirectory() as td:
+                ref, _ = case.main(epochs, out_dir=td, device="cpu")
+            hr = ref.history
+            if hr.iters != h.iters:
+                raise AssertionError(f"{name}: card and CPU log at other "
+                                     f"iterations ({h.iters} / {hr.iters})")
+            adam = [i for i, r in enumerate(hr.rounds_idx) if r == 1]
+            head = [i for i, r in enumerate(hr.rounds_idx)
+                    if r == 2 and hr.iter_round[i] <= SCIPY_HEAD_ITERS]
+            scipy_all = [i for i, r in enumerate(hr.rounds_idx) if r == 2]
+            d_adam, d_head, d_all = (rel_dev(hr, h, adam),
+                                     rel_dev(hr, h, head),
+                                     rel_dev(hr, h, scipy_all))
+            d_final = abs(h.loss_global[-1] / hr.loss_global[-1] - 1.0)
+            test_mse = h.losses_test["fit"]["log"][-1]
+            print(f"  {name}: against the plain versions on the CPU: Adam "
+                  f"{d_adam:.2e}, L-BFGS-B first {SCIPY_HEAD_ITERS} "
+                  f"iterations {d_head:.2e}, whole round ({h.iter_round[-1]} "
+                  f"iterations) {d_all:.2e}, final global loss "
+                  f"{h.loss_global[-1]:.6e} (CPU {hr.loss_global[-1]:.6e}, "
+                  f"{d_final:.2e} apart); final test MSE {test_mse:.6e} "
+                  f"(CPU {hr.losses_test['fit']['log'][-1]:.6e})")
+            if d_adam > 1e-8 or d_head > 1e-8 or d_final > FINAL_LOSS_BAR:
+                raise AssertionError(f"{name}: card and CPU histories "
+                                     "disagree")
+            slices[name] = {"launches": counts, "wall_s": wall,
+                            "adam_s": h.wall_times[0],
+                            "scipy_s": h.wall_times[1],
+                            "scipy_evals": n_bwd - 100,
+                            "scipy_iters": h.iter_round[-1],
+                            "dev_adam": d_adam, "dev_scipy_head": d_head,
+                            "dev_scipy_round": d_all,
+                            "final_loss_rel": d_final, "test_mse": test_mse,
+                            "loss_first": h.loss_global[0],
+                            "loss_last": h.loss_global[-1]}
+            if name == "poisson":
+                p_launches = counts
+                # one scipy function evaluation, and its two copies alone
+                vec = pb.get_vector()
+                eval_ms = host_ms(lambda: pb.value_and_grad_vector(vec))
+                h2d_ms = host_ms(lambda: pb.set_vector(vec))
+                grad = torch.zeros(vec.size + 1, dtype=f64, device=dev)
+                d2h_ms = host_ms(lambda: grad.cpu())
+                print(f"  poisson: one scipy evaluation {eval_ms:.3f} ms "
+                      f"(host clock, median of 50), of which the parameter "
+                      f"upload {h2d_ms:.3f} ms and the loss+gradient "
+                      f"download {d2h_ms:.3f} ms ({vec.size} float64 values)")
+                slices[name].update(eval_ms=eval_ms, h2d_ms=h2d_ms,
+                                    d2h_ms=d2h_ms)
+        record["poisson_slice"] = slices
+
+    def kernel_row(name, key, route_src, replaces, launches, row):
+        return {"name": name, "route": "cuda", "source": route_src,
+                "replaces": replaces, "launches": launches[name],
+                "max_abs_err": errs[name], "ms": row[key],
+                "plain_ms": row[f"plain_{key}"],
+                "bound_ms": row[f"{key}_bound"],
+                "bound_by": row[f"{key}_bound_by"], "library_ms": None}
+
+    ns_row = times[("ns", "float64", 1000)]
+    p_row = times[("poisson", "float64", 200)]
+    ns_src = "tpinn_torch/kernels/csrc/ns_residual.cu"
+    p_src = "tpinn_torch/kernels/csrc/poisson_residual.cu"
+    ref = "tpinn/pallas/mlp_bundle.py"
     kernels = [
-        {"name": "ns_residual_bwd", "route": "cuda",
-         "source": "tpinn_torch/kernels/csrc/ns_residual.cu",
-         "replaces": "tpinn/pallas/mlp_bundle.py:556",
-         "launches": launches["ns_residual_bwd"],
-         "max_abs_err": errs["ns_residual_bwd"],
-         "ms": main_row["bwd"], "plain_ms": main_row["plain_bwd"],
-         "bound_ms": main_row["bwd_bound"],
-         "bound_by": main_row["bwd_bound_by"], "library_ms": None},
-        {"name": "ns_residual_fwd", "route": "cuda",
-         "source": "tpinn_torch/kernels/csrc/ns_residual.cu",
-         "replaces": "tpinn/pallas/mlp_bundle.py:473",
-         "launches": launches["ns_residual_fwd"],
-         "max_abs_err": errs["ns_residual_fwd"],
-         "ms": main_row["fwd"], "plain_ms": main_row["plain_fwd"],
-         "bound_ms": main_row["fwd_bound"],
-         "bound_by": main_row["fwd_bound_by"], "library_ms": None},
+        kernel_row("ns_residual_bwd", "bwd", ns_src, f"{ref}:556", launches,
+                   ns_row),
+        kernel_row("ns_residual_fwd", "fwd", ns_src, f"{ref}:473", launches,
+                   ns_row),
+        kernel_row("poisson_residual_bwd", "bwd", p_src, f"{ref}:1268",
+                   p_launches, p_row),
+        kernel_row("poisson_residual_fwd", "fwd", p_src, f"{ref}:1209",
+                   p_launches, p_row),
     ]
     total = time.perf_counter() - t_all
     print(f"total {total:.1f} s")

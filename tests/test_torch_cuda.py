@@ -1,4 +1,6 @@
-"""The CUDA kernels on the card (skipped where there is none).
+"""The CUDA kernels on the card (skipped where there is none): the NS
+kernels 1-2 and the Poisson kernels 3-4 against their plain versions, and
+a short round of each slice on the card against the CPU.
 
 This file imports neither JAX nor tpinn, so it runs on the machine with the
 card, where those are not installed; the repo's conftest files import JAX,
@@ -99,3 +101,67 @@ def test_poiseuille_round_on_card_matches_cpu(cuda, tmp_path):
     a = np.array(gpu.pb.history.loss_global)
     b = np.array(cpu.pb.history.loss_global)
     np.testing.assert_allclose(a, b, rtol=1e-10)
+
+
+def _poisson_case(n, seed, device):
+    rng = np.random.default_rng(seed)
+    widths = (2, 20, 20, 20, 1)
+    params = []
+    for a, b in zip(widths[:-1], widths[1:]):
+        lim = np.sqrt(6.0 / (a + b))
+        params.append({
+            "kernel": torch.tensor(rng.uniform(-lim, lim, (a, b)), device=device),
+            "bias": torch.tensor(rng.uniform(-0.1, 0.1, b), device=device)})
+    x = torch.tensor(rng.uniform(0, 2 * np.pi, (n, 2)), device=device)
+    f = 2.0 * torch.sin(x[:, 0]) * torch.sin(x[:, 1])
+    return params, x, f
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,n_valid,normalization", [(200, None, 1.0),
+                                                     (4099, 4000, 1.0),
+                                                     (200, None, 3.0)])
+def test_poisson_kernels_match_plain_on_card(cuda, n, n_valid, normalization):
+    """Kernels 3 and 4 against their plain versions at the reference's
+    bars; repeat calls bit-identical; kernel 4's MSE equals kernel 3's."""
+    params, x, f = _poisson_case(n, 11, cuda)
+    gbar = torch.tensor([2.0], dtype=torch.float64, device=cuda)
+    dp, mse, loss = mb.poisson_residual_bwd(params, x, f, gbar, normalization,
+                                            n_valid, n_valid, with_loss=True)
+    leaves = [{k: p[k].detach().clone().requires_grad_(True)
+               for k in ("kernel", "bias")} for p in params]
+    ref_m = mb.poisson_residual_mse_plain(leaves, x, f, normalization,
+                                          n_valid, n_valid)
+    flat = [t for p in leaves for t in (p["kernel"], p["bias"])]
+    ref_g = torch.autograd.grad(2.0 * ref_m, flat, materialize_grads=True)
+    torch.testing.assert_close(loss, 2.0 * ref_m.detach(), rtol=1e-11, atol=0)
+    torch.testing.assert_close(mse, ref_m.detach(), rtol=1e-11, atol=0)
+    got = [t for p in dp for t in (p["kernel"], p["bias"])]
+    for a, b in zip(got, ref_g):
+        torch.testing.assert_close(a, b, rtol=1e-9, atol=1e-12)
+    dp2, mse2, loss2 = mb.poisson_residual_bwd(params, x, f, gbar,
+                                               normalization, n_valid,
+                                               n_valid, with_loss=True)
+    assert torch.equal(loss, loss2) and torch.equal(mse, mse2)
+    assert all(torch.equal(a, b) for a, b in
+               zip(got, [t for p in dp2 for t in (p["kernel"], p["bias"])]))
+    m_fwd = mb.poisson_residual_fwd(params, x, f, normalization, n_valid,
+                                    n_valid)
+    assert torch.equal(m_fwd, mse)
+
+
+@pytest.mark.cuda
+def test_poisson_round_on_card_matches_cpu(cuda, tmp_path):
+    """The Poisson case's 100 Adam epochs and five L-BFGS-B iterations on
+    the card and on the CPU (plain versions) from the same seed."""
+    from tpinn_torch.cases import poisson
+
+    mb.reset_launch_counts()
+    gpu, _ = poisson.main(5, out_dir=str(tmp_path / "gpu"), device=cuda)
+    assert mb.LAUNCHES["poisson_residual_bwd"] >= 100 + 5
+    assert mb.LAUNCHES["poisson_residual_fwd"] >= 11
+    cpu, _ = poisson.main(5, out_dir=str(tmp_path / "cpu"), device="cpu")
+    assert gpu.history.iters == cpu.history.iters
+    a = np.array(gpu.history.loss_global)
+    b = np.array(cpu.history.loss_global)
+    np.testing.assert_allclose(a, b, rtol=1e-8)

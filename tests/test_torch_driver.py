@@ -140,7 +140,7 @@ def test_minimize_strategies():
     assert _log_iters(25, 10) == [0, 10, 20, 25]
     assert _log_iters(20, 10) == [0, 10, 20]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        minimize(None, "scipy", "BFGS")
+        minimize(None, "jax", "BFGS")
     with pytest.raises(ValueError, match="unknown strategy"):
         minimize(None, "newton")
 

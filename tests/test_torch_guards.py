@@ -41,8 +41,15 @@ def test_import_leaves_reference_stack_unloaded():
 
 @pytest.mark.parametrize("path", [os.path.relpath(p, _REPO) for p in _port_files()])
 def test_port_file_has_no_forbidden_import(path):
+    """No port file imports JAX, optax, h5py, matplotlib or tpinn; the one
+    exception is matplotlib inside ``utils.plot_history``, imported when a
+    history is plotted (never on the training path)."""
     with open(os.path.join(_REPO, path)) as f:
         text = f.read()
+    if path == os.path.join("tpinn_torch", "utils.py"):
+        body = text[text.index("def plot_history("):]
+        body = body[:body.index("\n    history = ")]
+        text = text.replace(body, "")
     assert not re.search(r"^\s*(import|from)\s+jax\b", text, re.M)
     assert not re.search(r"^\s*(import|from)\s+(optax|h5py|matplotlib)\b",
                          text, re.M)
@@ -85,3 +92,50 @@ def test_chip_smoke_fails_without_a_card(tmp_path):
                               capture_output=True, text=True, timeout=300)
         assert proc.returncode != 0
         assert '"ok": true' not in proc.stdout
+
+
+def test_scipy_only_inside_the_scipy_round():
+    """scipy is imported by the scipy round alone, inside the function that
+    runs it: importing the port loads no scipy."""
+    for path in _port_files():
+        with open(path) as f:
+            lines = [l for l in f if re.match(r"\s*(import|from)\s+scipy\b", l)]
+        rel = os.path.relpath(path, _REPO)
+        if rel == os.path.join("tpinn_torch", "optimize.py"):
+            assert lines and all(l.startswith("    ") for l in lines), lines
+        else:
+            assert not lines, rel
+    code = (
+        "import pkgutil, importlib, sys, tpinn_torch\n"
+        "for m in pkgutil.walk_packages(tpinn_torch.__path__, 'tpinn_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "sys.exit(1 if 'scipy' in sys.modules else 0)\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=_REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_nisaba_namespace():
+    """``import tpinn_torch as ns`` offers the surface the cases use."""
+    import tpinn_torch as ns
+
+    for name in ("GradientTape", "Loss", "LossMeanSquares",
+                 "OptimizationProblem", "minimize", "models", "optimizers",
+                 "utils", "geometry", "oracles", "experimental"):
+        assert hasattr(ns, name), name
+    ops = ns.experimental.physics.tens_style
+    for name in ("gradient_scalar", "divergence_vector", "laplacian_scalar",
+                 "laplacian_vector"):
+        assert callable(getattr(ops, name)), name
+
+
+def test_cases_refuse_to_run_silently_on_the_cpu(tmp_path, monkeypatch):
+    """Without a card the Poisson cases raise unless given device='cpu'."""
+    from tpinn_torch.cases import poisson, poisson_misto
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for case in (poisson, poisson_misto):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            case.main(1, out_dir=str(tmp_path))

@@ -1,11 +1,12 @@
-"""Build the CUDA kernels with nvcc into a plain-C shared library and load
-it with ctypes.
+"""Build the CUDA kernels with nvcc into plain-C shared libraries and load
+them with ctypes.
 
-The library is built on first use into ``.cache/tpinn_torch/`` at the root
-of the checkout (listed in .gitignore), keyed by a hash of the sources and
-the flags, so an unchanged tree reuses it.  No PyTorch header is compiled:
-a source with a plain ``extern "C"`` interface builds in seconds, where one
-that includes PyTorch's headers takes minutes.
+Each source under ``csrc/`` becomes its own library, built on first use into
+``.cache/tpinn_torch/`` at the root of the checkout (listed in .gitignore),
+keyed by a hash of the source, the shared headers and the flags, so an
+unchanged tree reuses it.  The nvcc runs of all sources start together.  No
+PyTorch header is compiled: a source with a plain ``extern "C"`` interface
+builds in seconds, where one that includes PyTorch's headers takes minutes.
 """
 
 from __future__ import annotations
@@ -17,11 +18,12 @@ import shutil
 import subprocess
 import tempfile
 import time
-from typing import Optional
+from typing import Dict, Optional
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
-SOURCES = ("ns_residual.cu",)
+SOURCES = ("ns_residual.cu", "poisson_residual.cu")
+HEADERS = ("taylor_mlp.cuh",)
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)), ".cache",
                          "tpinn_torch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -42,21 +44,32 @@ _SIGNATURES = {
                             _P, _P, _P],
     "ns_residual_fwd_f32": [_P, _P, _P, _P, _I, _I, _I, _P, _D, _I, _I, _I,
                             _P, _P, _P],
+    "poisson_residual_plan": [_I, _I, _P, _I, _I, _P, _P, _P, _P],
+    "poisson_residual_bwd_f64": [_P, _P, _P, _P, _P, _I, _I, _D, _P, _D, _D,
+                                 _I, _I, _I, _I, _P, _P, _P],
+    "poisson_residual_bwd_f32": [_P, _P, _P, _P, _P, _I, _I, _D, _P, _D, _D,
+                                 _I, _I, _I, _I, _P, _P, _P],
+    "poisson_residual_fwd_f64": [_P, _P, _P, _P, _P, _I, _I, _D, _D, _I, _I,
+                                 _I, _P, _P, _P],
+    "poisson_residual_fwd_f32": [_P, _P, _P, _P, _P, _I, _I, _D, _D, _I, _I,
+                                 _I, _P, _P, _P],
 }
 
 
 class BuildInfo:
-    """What the last build did: the library path, whether nvcc ran, its
-    seconds and the ptxas report (registers, shared memory, spills)."""
+    """What the last build did: the libraries' paths (one per source),
+    whether nvcc ran, its wall seconds (all sources together) and the ptxas
+    report (registers, shared memory, spills)."""
 
-    def __init__(self, path: str, compiled: bool, seconds: float, log: str):
-        self.path = path
+    def __init__(self, paths: Dict[str, str], compiled: bool, seconds: float,
+                 log: str):
+        self.paths = paths
         self.compiled = compiled
         self.seconds = seconds
         self.log = log
 
 
-_lib: Optional[ctypes.CDLL] = None
+_libs: Dict[str, ctypes.CDLL] = {}
 _info: Optional[BuildInfo] = None
 
 
@@ -72,52 +85,78 @@ def _nvcc() -> str:
                        "machine with the CUDA toolkit")
 
 
-def _source_hash() -> str:
+def _source_hash(source: str) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in (source,) + HEADERS:
         with open(os.path.join(CSRC, name), "rb") as f:
             h.update(name.encode() + b"\0" + f.read())
     return h.hexdigest()[:16]
 
 
+def _lib_path(build_dir: str, source: str) -> str:
+    stem = os.path.splitext(source)[0]
+    return os.path.join(build_dir, f"lib{stem}-{_source_hash(source)}.so")
+
+
 def build(build_dir: str = BUILD_DIR) -> BuildInfo:
-    """Compile the sources if their hash has no library yet; return what
-    happened.  The library is written under a temporary name and renamed,
-    so a concurrent or interrupted build never leaves a half-written one."""
+    """Compile every source whose hash has no library yet, all nvcc runs at
+    once; return what happened.  Each library is written under a temporary
+    name and renamed, so a concurrent or interrupted build never leaves a
+    half-written one."""
     os.makedirs(build_dir, exist_ok=True)
-    out = os.path.join(build_dir, f"libtpinn_kernels-{_source_hash()}.so")
-    if os.path.exists(out):
-        return BuildInfo(out, False, 0.0, "")
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=build_dir)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[os.path.join(CSRC, s) for s in SOURCES]]
+    paths = {s: _lib_path(build_dir, s) for s in SOURCES}
+    todo = [s for s in SOURCES if not os.path.exists(paths[s])]
+    if not todo:
+        return BuildInfo(paths, False, 0.0, "")
+    nvcc = _nvcc()
     t0 = time.perf_counter()
+    jobs = []
     try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
-        os.replace(tmp, out)
+        for source in todo:
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=build_dir)
+            os.close(fd)
+            cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, source)]
+            jobs.append((source, tmp, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        logs, failed = [], []
+        for source, tmp, proc in jobs:
+            out, _ = proc.communicate()
+            logs.append(f"[{source}]\n{out}")
+            if proc.returncode != 0:
+                failed.append(f"nvcc {source} failed ({proc.returncode}):\n{out}")
+            else:
+                os.replace(tmp, paths[source])
+        if failed:
+            raise RuntimeError("\n".join(failed))
     finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    return BuildInfo(out, True, time.perf_counter() - t0,
-                     proc.stdout + proc.stderr)
+        for _, tmp, proc in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if os.path.exists(tmp):
+                os.remove(tmp)
+    return BuildInfo(paths, True, time.perf_counter() - t0, "".join(logs))
 
 
-def library() -> ctypes.CDLL:
-    """The loaded kernel library, built on first use."""
-    global _lib, _info
-    if _lib is None:
-        _info = build()
-        lib = ctypes.CDLL(_info.path)
+def library(source: str) -> ctypes.CDLL:
+    """The loaded library of one source, every library built on first use."""
+    global _info
+    if source not in _libs:
+        if source not in SOURCES:
+            raise ValueError(f"no kernel source {source!r}")
+        if _info is None or not all(os.path.exists(p)
+                                    for p in _info.paths.values()):
+            _info = build()
+        lib = ctypes.CDLL(_info.paths[source])
+        prefix = os.path.splitext(source)[0] + "_"
         for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
+            if name.startswith(prefix):
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+        _libs[source] = lib
+    return _libs[source]
 
 
 def last_build() -> Optional[BuildInfo]:

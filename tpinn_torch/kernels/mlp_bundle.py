@@ -1,4 +1,4 @@
-"""Fused Navier–Stokes residual kernels: torch side.
+"""Fused PDE-residual kernels: torch side.
 
 Two CUDA kernels (csrc/ns_residual.cu) replace the NS-residual Pallas kernels
 of the JAX package:
@@ -10,6 +10,15 @@ of the JAX package:
   one pass.
 * ``ns_residual_fwd`` — the forward: the three MSEs only.  It is the forward
   of ``ns_residual_mse``, whose backward is ``ns_residual_bwd``.
+
+Two more (csrc/poisson_residual.cu) replace the Poisson-residual ones, for a
+scalar MLP u(x, y) and r = (Δu + f)/normalization:
+
+* ``poisson_residual_bwd`` — the one-pass backward: Σ r² and every dW/db of
+  the MSE cotangent in one launch; ``poisson_residual_weighted_obj`` calls
+  it with the loss weight as cotangent.
+* ``poisson_residual_fwd`` — the forward: Σ r² only, the forward of
+  ``poisson_residual_mse``, whose backward is ``poisson_residual_bwd``.
 
 Beside each public function sits its plain PyTorch version (``*_plain``),
 built on :func:`tpinn_torch.operators.mlp_taylor_batched` and autograd.  A
@@ -33,7 +42,9 @@ SMEM_LIMIT = 227 * 1024  # bytes of shared memory a block may use
 D_OUT = 3
 N_H = 2
 
-LAUNCHES: Dict[str, int] = {"ns_residual_bwd": 0, "ns_residual_fwd": 0}
+LAUNCHES: Dict[str, int] = {"ns_residual_bwd": 0, "ns_residual_fwd": 0,
+                             "poisson_residual_bwd": 0,
+                             "poisson_residual_fwd": 0}
 _PLANS: Dict[tuple, Tuple[int, int, int, int]] = {}
 
 
@@ -80,49 +91,66 @@ def _check_layout(params, x, physics) -> List[int]:
 
 
 def smem_elems(widths: Sequence[int], d_in: int, points: int,
-               bwd: bool) -> int:
+               bwd: bool, d_out: int = D_OUT, n_sq: int = 3) -> int:
     """Shared-memory elements of one block (mirrors ``Layout::build`` in
-    csrc/ns_residual.cu): weights with padded rows, the accumulators, and
-    ``points`` per-point regions."""
+    csrc/taylor_mlp.cuh): weights with padded rows, the accumulators, and
+    ``points`` per-point regions; ``d_out`` is the head width and ``n_sq``
+    the number of squared-residual sums (3 and 3 for Navier–Stokes, 1 and 1
+    for Poisson)."""
     S = 1 + d_in + N_H
     L = len(widths) - 1
     total = sum(widths[l] * (widths[l + 1] + 1) + widths[l + 1]
                 for l in range(L))
     maxw = max(widths[1:])
     n_acc = (sum((widths[l] + 1) * widths[l + 1] for l in range(L))
-             if bwd else 0) + 3
-    pt = d_in + sum(2 * S * widths[l + 1] for l in range(L - 1)) + S * D_OUT
-    pt += (S * maxw if bwd else 0) + 3
+             if bwd else 0) + n_sq
+    pt = d_in + sum(2 * S * widths[l + 1] for l in range(L - 1)) + S * d_out
+    pt += (S * maxw if bwd else 0) + n_sq
     pt += pt & 1
     return total + n_acc + points * pt
 
 
-def fits_kernel(widths: Sequence[int], d_in: int,
-                dtype: torch.dtype = torch.float64) -> bool:
-    """True when the CUDA kernels take this MLP: d_in 2 or 3, a (u, v, p)
-    head, at most MAX_LAYERS layers of at most MAX_WIDTH, and one point's
-    backward working set in one block's shared memory."""
+def _fits(widths: Sequence[int], d_in: int, d_out: int, n_sq: int,
+          dtype: torch.dtype) -> bool:
     widths = [int(w) for w in widths]
     L = len(widths) - 1
-    if d_in not in (2, 3) or widths[0] != d_in or widths[-1] != D_OUT:
+    if widths[0] != d_in or widths[-1] != d_out:
         return False
     if not 1 <= L <= MAX_LAYERS or max(widths[1:]) > MAX_WIDTH:
         return False
     itemsize = torch.empty((), dtype=dtype).element_size()
-    return smem_elems(widths, d_in, 1, True) * itemsize <= SMEM_LIMIT
+    return (smem_elems(widths, d_in, 1, True, d_out, n_sq) * itemsize
+            <= SMEM_LIMIT)
 
 
-def _check_kernel_args(params, x) -> None:
+def fits_kernel(widths: Sequence[int], d_in: int,
+                dtype: torch.dtype = torch.float64) -> bool:
+    """True when the CUDA NS kernels take this MLP: d_in 2 or 3, a (u, v, p)
+    head, at most MAX_LAYERS layers of at most MAX_WIDTH, and one point's
+    backward working set in one block's shared memory."""
+    return d_in in (2, 3) and _fits(widths, d_in, D_OUT, 3, dtype)
+
+
+def fits_poisson_kernel(widths: Sequence[int],
+                        dtype: torch.dtype = torch.float64) -> bool:
+    """True when the CUDA Poisson kernels take this MLP: inputs (x, y), a
+    scalar head, and the same layer and shared-memory limits."""
+    return _fits(widths, 2, 1, 1, dtype)
+
+
+def _check_kernel_args(params, x, kind: str = "ns_residual") -> None:
     if x.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"ns_residual kernels take float32/float64, not {x.dtype}")
+        raise TypeError(f"{kind} kernels take float32/float64, not {x.dtype}")
     if x.dim() != 2 or not x.is_contiguous():
-        raise ValueError("ns_residual kernels take a contiguous (n, d_in) batch")
+        raise ValueError(f"{kind} kernels take a contiguous (n, d_in) batch")
     if x.shape[0] >= 2 ** 31:
         raise ValueError(f"batch of {x.shape[0]} points exceeds the int32 range")
     widths = _widths(params)
-    if not fits_kernel(widths, int(x.shape[1]), x.dtype):
+    fits = (fits_poisson_kernel(widths, x.dtype) if kind == "poisson_residual"
+            else fits_kernel(widths, int(x.shape[1]), x.dtype))
+    if not fits:
         raise ValueError(
-            f"ns_residual kernels do not take widths {widths}: at most "
+            f"{kind} kernels do not take widths {widths}: at most "
             f"{MAX_LAYERS} layers of at most {MAX_WIDTH}, and one point's "
             f"working set within {SMEM_LIMIT} bytes of shared memory")
     for p in params:
@@ -147,18 +175,25 @@ def _unflat(flat) -> List[dict]:
 # ---------------------------------------------------------------------------
 
 
-def _plan(lib, bwd: bool, x: torch.Tensor, widths, n_eff: int):
-    key = (x.device.index, bwd, x.dtype, tuple(widths), n_eff)
+def _plan(lib, bwd: bool, x: torch.Tensor, widths, n_eff: int,
+          kind: str = "ns_residual"):
+    key = (kind, x.device.index, bwd, x.dtype, tuple(widths), n_eff)
     plan = _PLANS.get(key)
     if plan is None:
         L = len(widths) - 1
         w_arr = (ctypes.c_int * (L + 1))(*widths)
         outs = [ctypes.c_int(0) for _ in range(4)]
-        rc = lib.ns_residual_plan(
-            int(bwd), int(x.dtype == torch.float64), ctypes.addressof(w_arr),
-            L, int(x.shape[1]), n_eff, *[ctypes.addressof(o) for o in outs])
+        head = (int(bwd), int(x.dtype == torch.float64),
+                ctypes.addressof(w_arr), L)
+        if kind == "poisson_residual":
+            rc = lib.poisson_residual_plan(
+                *head, n_eff, *[ctypes.addressof(o) for o in outs])
+        else:
+            rc = lib.ns_residual_plan(
+                *head, int(x.shape[1]), n_eff,
+                *[ctypes.addressof(o) for o in outs])
         if rc != 0:
-            raise RuntimeError(f"ns_residual_plan failed with code {rc}")
+            raise RuntimeError(f"{kind}_plan failed with code {rc}")
         plan = tuple(o.value for o in outs)  # (P, G, smem bytes, n_acc)
         _PLANS[key] = plan
     return plan
@@ -172,7 +207,7 @@ def _launch(bwd: bool, params, x, physics, norm, gbar, n_valid, n_mean,
         raise ValueError("ns_residual kernels run on CUDA tensors only")
     _check_layout(params, x, physics)
     _check_kernel_args(params, x)
-    lib = build.library()
+    lib = build.library("ns_residual.cu")
     widths = _widths(params)
     L = len(widths) - 1
     n = int(x.shape[0])
@@ -219,6 +254,13 @@ def ns_residual_bwd(params, x, physics, norm, gbar: torch.Tensor,
     ``gbar · mses`` when ``with_loss`` (else None)."""
     out = _launch(True, params, x, physics, norm, gbar, n_valid, n_mean,
                   with_loss)
+    dparams, off = _unpack_dparams(params, out)
+    return dparams, out[off:off + 3], (out[off + 3] if with_loss else None)
+
+
+def _unpack_dparams(params, out: torch.Tensor):
+    """Views of a backward kernel's output as per-layer dW/db, and the
+    offset of the squared-sum slots after them."""
     dparams, off = [], 0
     for p in params:
         w_in, w_out = p["kernel"].shape
@@ -227,7 +269,7 @@ def ns_residual_bwd(params, x, physics, norm, gbar: torch.Tensor,
             "bias": out[off + w_in * w_out:off + (w_in + 1) * w_out],
         })
         off += (w_in + 1) * w_out
-    return dparams, out[off:off + 3], (out[off + 3] if with_loss else None)
+    return dparams, off
 
 
 def ns_residual_fwd(params, x, physics, norm, n_valid: Optional[int] = None,
@@ -287,14 +329,14 @@ class _ResidualMSE(torch.autograd.Function):
         return (None, None, *_flat(dparams))
 
 
-def _route(x: torch.Tensor) -> bool:
+def _route(x: torch.Tensor, kind: str = "ns_residual") -> bool:
     """True for the kernel (CUDA tensor), False for the plain version (CPU
     tensor); any other device raises."""
     if x.device.type == "cuda":
         return True
     if x.device.type == "cpu":
         return False
-    raise ValueError(f"ns_residual: no path for device {x.device}")
+    raise ValueError(f"{kind}: no path for device {x.device}")
 
 
 def ns_residual_weighted_obj(params, x, physics, norm, weights,
@@ -361,3 +403,213 @@ def ns_residual_weighted_obj_plain(params, x, physics, norm, weights,
                             else weights)]
     loss = w[0] * mses[0] + w[1] * mses[1] + w[2] * mses[2]
     return loss, mses.detach()
+
+
+# ---------------------------------------------------------------------------
+# Poisson: r = (∂²u/∂x² + ∂²u/∂y² + f) / normalization for a scalar u(x, y)
+# ---------------------------------------------------------------------------
+
+
+def _check_poisson_layout(params, x, f) -> List[int]:
+    widths = _widths(params)
+    if x.dim() != 2 or int(x.shape[1]) != 2 or widths[0] != 2:
+        raise ValueError(f"poisson_residual: widths {widths} on a batch of "
+                         f"shape {tuple(x.shape)}; expected (n, 2) inputs (x, y)")
+    if widths[-1] != 1:
+        raise ValueError(f"poisson_residual: widths {widths} do not end in a "
+                         "scalar head")
+    if f.numel() != x.shape[0]:
+        raise ValueError(f"poisson_residual: {f.numel()} forcing values for "
+                         f"{x.shape[0]} points")
+    return widths
+
+
+def _poisson_launch(bwd: bool, params, x, f, normalization, gbar, n_valid,
+                    n_mean, with_loss: bool) -> torch.Tensor:
+    from tpinn_torch.kernels import build
+
+    if x.device.type != "cuda":
+        raise ValueError("poisson_residual kernels run on CUDA tensors only")
+    _check_poisson_layout(params, x, f)
+    _check_kernel_args(params, x, "poisson_residual")
+    if f.device != x.device or f.dtype != x.dtype or f.dim() != 1 or \
+            not f.is_contiguous():
+        raise ValueError("f must be a contiguous (n,) tensor on the batch's "
+                         "device and dtype")
+    lib = build.library("poisson_residual.cu")
+    widths = _widths(params)
+    L = len(widths) - 1
+    n = int(x.shape[0])
+    n_eff = min(n, n if n_valid is None else int(n_valid))
+    n_mean = n if n_mean is None else int(n_mean)
+    with torch.cuda.device(x.device):
+        P, G, smem, n_acc = _plan(lib, bwd, x, widths, n_eff,
+                                  "poisson_residual")
+        part = torch.empty(G * n_acc, dtype=x.dtype, device=x.device)
+        out = torch.empty(n_acc + 1, dtype=x.dtype, device=x.device)
+        w_ptrs = (ctypes.c_void_p * L)(*[p["kernel"].data_ptr() for p in params])
+        b_ptrs = (ctypes.c_void_p * L)(*[p["bias"].data_ptr() for p in params])
+        w_arr = (ctypes.c_int * (L + 1))(*widths)
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        f64 = x.dtype == torch.float64
+        common = (x.data_ptr(), f.data_ptr(), ctypes.addressof(w_ptrs),
+                  ctypes.addressof(b_ptrs), ctypes.addressof(w_arr), L, n_eff,
+                  1.0 / float(normalization))
+        if bwd:
+            if gbar.device != x.device or gbar.dtype != x.dtype or \
+                    gbar.shape != (1,) or not gbar.is_contiguous():
+                raise ValueError("gbar must be a contiguous (1,) tensor on "
+                                 "the batch's device and dtype")
+            fn = (lib.poisson_residual_bwd_f64 if f64
+                  else lib.poisson_residual_bwd_f32)
+            rc = fn(*common, gbar.data_ptr(), 2.0 / n_mean, float(n_mean),
+                    int(with_loss), P, G, smem, part.data_ptr(),
+                    out.data_ptr(), stream)
+        else:
+            fn = (lib.poisson_residual_fwd_f64 if f64
+                  else lib.poisson_residual_fwd_f32)
+            rc = fn(*common, float(n_mean), P, G, smem, part.data_ptr(),
+                    out.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"poisson_residual_{'bwd' if bwd else 'fwd'} "
+                           f"launch failed: cudaError {rc}")
+    LAUNCHES["poisson_residual_bwd" if bwd else "poisson_residual_fwd"] += 1
+    return out
+
+
+def poisson_residual_bwd(params, x, f, gbar: torch.Tensor,
+                         normalization: float = 1.0,
+                         n_valid: Optional[int] = None,
+                         n_mean: Optional[int] = None,
+                         with_loss: bool = False):
+    """Kernel 3 on a CUDA batch: (dparams, mse, loss) where dparams are the
+    parameter cotangents of the (1,) MSE cotangent ``gbar`` and loss is
+    ``gbar · mse`` when ``with_loss`` (else None).  The head bias gradient
+    is exactly zero (Δu does not depend on it)."""
+    out = _poisson_launch(True, params, x, f, normalization, gbar, n_valid,
+                          n_mean, with_loss)
+    dparams, off = _unpack_dparams(params, out)
+    return dparams, out[off], (out[off + 1] if with_loss else None)
+
+
+def poisson_residual_fwd(params, x, f, normalization: float = 1.0,
+                         n_valid: Optional[int] = None,
+                         n_mean: Optional[int] = None) -> torch.Tensor:
+    """Kernel 4 on a CUDA batch: the MSE (a 0-dim tensor)."""
+    out = _poisson_launch(False, params, x, f, normalization, None, n_valid,
+                          n_mean, False)
+    return out[0]
+
+
+class _PoissonSpec:
+    """Non-tensor arguments of the Poisson autograd Functions."""
+
+    def __init__(self, normalization, n_valid, n_mean, weight=None):
+        self.normalization = float(normalization)
+        self.n_valid, self.n_mean = n_valid, n_mean
+        self.weight = weight
+
+
+class _PoissonWeightedObjective(torch.autograd.Function):
+    """Forward launches kernel 3 with the loss weight as cotangent and keeps
+    its dparams; backward scales them by the incoming loss cotangent.  The
+    MSE is a log channel: non-differentiable, its cotangent is dropped."""
+
+    @staticmethod
+    def forward(ctx, x, f, spec, *flat):
+        dparams, mse, loss = poisson_residual_bwd(
+            _unflat(flat), x, f, spec.weight, spec.normalization,
+            spec.n_valid, spec.n_mean, with_loss=True)
+        ctx.dflat = _flat(dparams)
+        ctx.mark_non_differentiable(mse)
+        return loss, mse
+
+    @staticmethod
+    def backward(ctx, g_loss, g_mse):
+        return (None, None, None, *[g_loss * d for d in ctx.dflat])
+
+
+class _PoissonResidualMSE(torch.autograd.Function):
+    """Forward launches kernel 4; backward launches kernel 3 with the
+    incoming MSE cotangent.  No gradient in x or f."""
+
+    @staticmethod
+    def forward(ctx, x, f, spec, *flat):
+        ctx.spec = spec
+        ctx.save_for_backward(x, f, *flat)
+        return poisson_residual_fwd(_unflat(flat), x, f, spec.normalization,
+                                    spec.n_valid, spec.n_mean)
+
+    @staticmethod
+    def backward(ctx, g_mse):
+        x, f, *flat = ctx.saved_tensors
+        spec = ctx.spec
+        dparams, _, _ = poisson_residual_bwd(
+            _unflat(flat), x, f, g_mse.reshape(1).contiguous(),
+            spec.normalization, spec.n_valid, spec.n_mean)
+        return (None, None, None, *_flat(dparams))
+
+
+def poisson_residual_weighted_obj(params, x, f, weight,
+                                  normalization: float = 1.0,
+                                  n_valid: Optional[int] = None,
+                                  n_mean: Optional[int] = None):
+    """(weight·mse, mse) in one kernel launch, mse = mean over the first
+    ``n_valid`` rows (÷ ``n_mean``) of ((Δu + f)/normalization)².
+
+    The loss is differentiable w.r.t. ``params``; the MSE is for logging
+    only (no gradient).  ``weight`` is a float or a (1,) tensor on the
+    batch's device (a caller that evaluates every step keeps one, so no
+    host-to-device copy is made per call)."""
+    f = f.reshape(-1)
+    if not _route(x, "poisson_residual"):
+        w = float(weight.reshape(-1)[0]) if torch.is_tensor(weight) else weight
+        return poisson_residual_weighted_obj_plain(
+            params, x, f, w, normalization, n_valid, n_mean)
+    _check_poisson_layout(params, x, f)
+    if not torch.is_tensor(weight):
+        weight = torch.tensor([float(weight)], dtype=x.dtype, device=x.device)
+    spec = _PoissonSpec(normalization, n_valid, n_mean, weight.reshape(1))
+    return _PoissonWeightedObjective.apply(x, f.contiguous(), spec,
+                                           *_flat(params))
+
+
+def poisson_residual_mse(params, x, f, normalization: float = 1.0,
+                         n_valid: Optional[int] = None,
+                         n_mean: Optional[int] = None) -> torch.Tensor:
+    """mean(((Δu + f)/normalization)²) of a scalar tanh MLP, differentiable
+    w.r.t. ``params`` (kernel 4 forward, kernel 3 backward on CUDA).  No
+    gradient w.r.t. ``x`` or ``f``."""
+    f = f.reshape(-1)
+    if not _route(x, "poisson_residual"):
+        return poisson_residual_mse_plain(params, x, f, normalization,
+                                          n_valid, n_mean)
+    _check_poisson_layout(params, x, f)
+    spec = _PoissonSpec(normalization, n_valid, n_mean)
+    return _PoissonResidualMSE.apply(x, f.contiguous(), spec, *_flat(params))
+
+
+def poisson_residual_mse_plain(params, x, f, normalization: float = 1.0,
+                               n_valid: Optional[int] = None,
+                               n_mean: Optional[int] = None) -> torch.Tensor:
+    """Plain twin of ``poisson_residual_mse``: the closed-form Hessian
+    diagonal of the scalar head, r = (−Δu − f)/normalization on the first
+    ``n_valid`` rows, Σ r² ÷ ``n_mean``; autograd gives the gradients."""
+    f = f.reshape(-1)
+    _check_poisson_layout(params, x, f)
+    n = int(x.shape[0])
+    n_eff = min(n, n if n_valid is None else int(n_valid))
+    n_mean = n if n_mean is None else int(n_mean)
+    _, _, hdiag = mlp_taylor_batched(params, x[:n_eff], 2)
+    r = (-(hdiag[:, 0, 0] + hdiag[:, 0, 1]) - f[:n_eff]) / normalization
+    return torch.sum(r * r) / n_mean
+
+
+def poisson_residual_weighted_obj_plain(params, x, f, weight: float,
+                                        normalization: float = 1.0,
+                                        n_valid: Optional[int] = None,
+                                        n_mean: Optional[int] = None):
+    """Plain twin of ``poisson_residual_weighted_obj``."""
+    mse = poisson_residual_mse_plain(params, x, f, normalization, n_valid,
+                                     n_mean)
+    return float(weight) * mse, mse.detach()

@@ -47,14 +47,21 @@ class Loss:
 
 
 class LossMeanSquares(Loss):
-    """Mean-of-squares residual loss: raw = mean((fn()/normalization)^2)."""
+    """Mean-of-squares residual loss: raw = mean((fn()/normalization)^2).
+
+    ``point_residual`` (optional) is the pointwise form of the residual,
+    ``(point_fn, args)`` with ``point_fn(params, *args_i) -> scalar`` for
+    row i, as the reference's cases pass it for the Levenberg–Marquardt
+    round's per-point Gram.  It is stored; no ported round reads it yet."""
 
     display_sqrt = True
 
     def __init__(self, name: str, fn: Callable[[], torch.Tensor],
-                 weight: float = 1.0, normalization: float = 1.0):
+                 weight: float = 1.0, normalization: float = 1.0,
+                 point_residual=None):
         super().__init__(name, fn, weight=weight,
                          normalization=normalization, non_negative=True)
+        self.point_residual = point_residual
 
     def raw_value(self) -> torch.Tensor:
         r = self.fn() / self.normalization

@@ -36,6 +36,22 @@ def glorot_uniform(shape, dtype, generator: torch.Generator) -> torch.Tensor:
     return u * (2.0 * limit) - limit
 
 
+class VariablesHandle:
+    """Reference to a model's parameters, the ``model.variables`` that
+    nisaba's ``ns.OptimizationProblem(model.variables, ...)`` takes.
+    ``get()`` returns the live parameters; ``set(params)`` copies values
+    into them in place."""
+
+    def __init__(self, model: "Model"):
+        self.model = model
+
+    def get(self) -> List[dict]:
+        return self.model.params
+
+    def set(self, params: Sequence[dict]) -> None:
+        self.model.set_params(params)
+
+
 class Model(nn.Module):
     """Dense MLP over per-point inputs (x (N, d_in) -> (N, d_out))."""
 
@@ -100,6 +116,10 @@ class Model(nn.Module):
         """The live parameters in the JAX package's list-of-dicts layout."""
         return [{"kernel": k, "bias": b}
                 for k, b in zip(self.kernels, self.biases)]
+
+    @property
+    def variables(self) -> VariablesHandle:
+        return VariablesHandle(self)
 
     def flat_params(self) -> List[torch.Tensor]:
         """Parameters in (kernel_0, bias_0, kernel_1, ...) order."""

@@ -1,9 +1,35 @@
-"""Closed-form Poiseuille solution: plane channel flow with a pressure drop,
-with the reference's lava parameters."""
+"""Closed-form exact solutions of the analytic cases.
+
+* Poisson: u = sin(x) sin(y), f = 2 sin(x) sin(y) on (0, 2π)²; the
+  mixed-BC variant adds the Neumann data ∂u/∂x = cos(x) sin(y).
+* Poiseuille: plane channel flow with a pressure drop, with the reference's
+  lava parameters.
+"""
 
 from __future__ import annotations
 
 import dataclasses
+
+import torch
+
+
+# -- Poisson -----------------------------------------------------------------
+
+
+def poisson_exact(x):
+    return torch.sin(x[:, 0]) * torch.sin(x[:, 1])
+
+
+def poisson_forcing(x):
+    return 2.0 * torch.sin(x[:, 0]) * torch.sin(x[:, 1])
+
+
+def poisson_neumann_x(x):
+    """∂u/∂x = cos(x) sin(y); on the edges x = 0 and x = 2π, sin(y)."""
+    return torch.cos(x[:, 0]) * torch.sin(x[:, 1])
+
+
+# -- Poiseuille (lava channel, reference parameters) -------------------------
 
 
 @dataclasses.dataclass(frozen=True)

@@ -15,6 +15,7 @@ Two evaluators feed the PDE losses:
   MSEs and the parameter gradients from one call of
   :func:`tpinn_torch.kernels.mlp_bundle.ns_residual_weighted_obj` (the CUDA
   kernel on a CUDA batch, its plain twin on the CPU);
+  :class:`FusedPoissonObjective` is its Poisson member (−Δu = f);
 * :class:`ResidualBundle` + the ``*_residual`` row functions — residual
   vectors from the closed-form Taylor streams, for models the kernel does
   not take, and for the boundary (Neumann) losses.
@@ -23,6 +24,7 @@ Two evaluators feed the PDE losses:
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Optional
 
 import torch
@@ -240,11 +242,80 @@ class FusedNSWeightedObjective:
         return chan(0), chan(1), chan(2)
 
 
+class FusedPoissonObjective:
+    """One-pass Poisson objective: the weighted −Δu − f loss, its raw MSE
+    log channel and the parameter gradients from one call of
+    :func:`tpinn_torch.kernels.mlp_bundle.poisson_residual_weighted_obj`
+    (kernel 3 on a CUDA batch, its plain twin on the CPU); under
+    ``torch.no_grad`` the MSE alone, from the forward (kernel 4).  Same memo
+    contract as :class:`FusedNSWeightedObjective`."""
+
+    def __init__(self, model: Model, x: torch.Tensor, f: torch.Tensor,
+                 weight: float, normalization: float = 1.0):
+        self.model = model
+        self.x = x
+        self.f = f.reshape(-1)
+        self.weight = float(weight)
+        self.normalization = float(normalization)
+        self._weight_t = torch.tensor([self.weight], dtype=x.dtype,
+                                      device=x.device)
+        self._memo = None
+
+    def _compute(self):
+        params = self.model.params
+        key = _params_key(params)
+        if self._memo is not None and self._memo[0] == key:
+            return self._memo[1]
+        if torch.is_grad_enabled():
+            out = mlp_bundle.poisson_residual_weighted_obj(
+                params, self.x, self.f, self._weight_t,
+                normalization=self.normalization)
+        else:
+            out = (None, mlp_bundle.poisson_residual_mse(
+                params, self.x, self.f, normalization=self.normalization))
+        self._memo = (key, out)
+        return out
+
+    def loss_fn(self):
+        """Closure for PrecomputedMeanSquares: logs the exact raw MSE while
+        carrying the one-pass gradient through the surrogate term
+        ``(L − L.detach())/w``, which is exactly 0.0 in value."""
+        w = self.weight or 1.0
+
+        def fn():
+            L, mse = self._compute()
+            v = mse.detach()
+            if L is not None:
+                v = v + (L - L.detach()) / w
+            return v
+
+        return fn
+
+
 def use_fused_pde_losses(model: Model, spec_unsteady: bool,
                          dim_in: int) -> bool:
-    """Route the PDE losses through the fused objective: a plain tanh MLP
-    whose widths the CUDA kernel takes, steady (x, y) or unsteady (t, x, y).
-    The batch's device then picks the kernel (CUDA) or its plain twin (CPU)."""
+    """Route the PDE losses through a fused objective: a plain tanh MLP,
+    steady (x, y) or unsteady (t, x, y), whose widths the CUDA kernels take:
+    the NS kernels for a (u, v, p) head, the Poisson kernels for a scalar
+    head on (x, y).  The batch's device then picks the kernel (CUDA) or its
+    plain twin (CPU).  An eligible net that no kernel takes warns, naming
+    its widths, and takes the plain PyTorch path."""
     eligible = dim_in == (3 if spec_unsteady else 2) and model.is_plain_tanh()
-    return eligible and mlp_bundle.fits_kernel(model.layer_sizes, dim_in,
-                                               model.dtype)
+    if not eligible:
+        return False
+    widths = model.layer_sizes
+    if widths[-1] == 1 and not spec_unsteady:
+        fits = mlp_bundle.fits_poisson_kernel(widths, model.dtype)
+    else:
+        fits = mlp_bundle.fits_kernel(widths, dim_in, model.dtype)
+    if not fits:
+        warnings.warn(
+            f"fused PDE-loss kernels disabled: the CUDA residual kernels do "
+            f"not take widths {list(widths)} (a (u, v, p) or, on (x, y), a "
+            f"scalar head; at most {mlp_bundle.MAX_LAYERS} layers of at most "
+            f"{mlp_bundle.MAX_WIDTH}; one point's working set within "
+            f"{mlp_bundle.SMEM_LIMIT} bytes of shared memory); taking the "
+            "plain PyTorch path",
+            stacklevel=2,
+        )
+    return fits

@@ -1,28 +1,36 @@
 """OptimizationProblem: the model, its training and test losses, and the
 history they are logged into (nisaba's ``ns.OptimizationProblem``).
-Callbacks (history plots, checkpoints) are not ported yet."""
+Callbacks (history plots, checkpoints) are not ported yet.
+
+The model is given as ``model.variables``, as nisaba's cases pass it, or as
+the model itself.
+"""
 
 from __future__ import annotations
 
-from typing import List, Sequence, Union
+from typing import List, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
 from tpinn_torch.history import History
 from tpinn_torch.losses import Loss
-from tpinn_torch.models import Model
+from tpinn_torch.models import Model, VariablesHandle
 
 
 class OptimizationProblem:
     def __init__(
         self,
-        model: Model,
+        variables: Union[VariablesHandle, Model],
         losses: Sequence[Loss],
         losses_test: Union[Loss, Sequence[Loss], None] = None,
     ):
-        if not isinstance(model, Model):
-            raise TypeError("model must be a tpinn_torch Model")
-        self.model = model
+        if isinstance(variables, VariablesHandle):
+            variables = variables.model
+        if not isinstance(variables, Model):
+            raise TypeError("variables must be model.variables or a "
+                            "tpinn_torch Model")
+        self.model = variables
         self.losses: List[Loss] = list(losses)
         if losses_test is None:
             losses_test = []
@@ -57,6 +65,46 @@ class OptimizationProblem:
         for l in self.losses:
             total = total + l.weight * train[l.name]
         return total, train, test
+
+    # -- flat float64 view for host optimizers (the scipy round) -----------
+    def _vector_order(self) -> List[torch.Tensor]:
+        """Parameters in the JAX package's ``ravel_pytree`` order: per
+        layer the bias, then the kernel (its dict keys sorted)."""
+        return [t for p in self.model.params for t in (p["bias"], p["kernel"])]
+
+    def get_vector(self) -> np.ndarray:
+        """The parameters as one float64 host vector."""
+        flat = torch.cat([t.detach().reshape(-1) for t in self._vector_order()])
+        return flat.cpu().numpy().astype(np.float64)
+
+    @torch.no_grad()
+    def set_vector(self, vec: np.ndarray) -> None:
+        """Copy a host vector into the parameters, in place: one
+        host-to-device copy, then device-side copies per tensor."""
+        order = self._vector_order()
+        src = torch.tensor(np.asarray(vec), dtype=order[0].dtype)
+        src = src.to(order[0].device)
+        off = 0
+        for t in order:
+            n = t.numel()
+            t.copy_(src[off:off + n].view_as(t))
+            off += n
+        if off != src.numel():
+            raise ValueError(f"vector of {src.numel()} values for {off} "
+                             "parameters")
+
+    def value_and_grad_vector(self, vec: np.ndarray) -> Tuple[float, np.ndarray]:
+        """(loss, gradient) at the parameters ``vec`` as a float and a
+        float64 host vector; the model keeps ``vec``.  One copy each way.
+        A parameter the loss does not read gets a zero gradient."""
+        self.set_vector(vec)
+        order = self._vector_order()
+        loss = self.loss_fn()
+        grads = torch.autograd.grad(loss, order, materialize_grads=True)
+        both = torch.cat([loss.detach().reshape(1)]
+                         + [g.reshape(-1) for g in grads])
+        out = both.cpu().numpy().astype(np.float64)
+        return float(out[0]), out[1:]
 
     def save_history(self, path) -> None:
         self.history.save(path)
