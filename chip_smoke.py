@@ -42,7 +42,23 @@ exits non-zero:
    1e-8 and its final global loss at 5 % (L-BFGS-B amplifies rounding about
    tenfold per ten iterations, so later log points follow another
    trajectory; PERF.md section 2); the cost of one scipy function
-   evaluation and of its two host/device copies.
+   evaluation and of its two host/device copies;
+9. kernel 5 (taylor_bundle, the per-point value, Jacobian and Hessian
+   diagonal) against its plain version in float64: 2-32-32-32-3 at n =
+   1000, 100 and 4099 (not a tile multiple), d_in = 3 (seven streams) and
+   2-20-20-20-1 (a scalar head); max |Δ| ≤ 1e-12·max|ref| per output; repeat
+   calls bit-identical; the float32 instantiation's error against float64;
+10. times of kernel 5 and its plain version at 100, 1,000, 262,144 and
+   1,048,576 points, float32 and float64, as in phase 5;
+11. the slice: the Poiseuille Levenberg–Marquardt round (10 iterations
+   after a 0-epoch Adam round, float64, the reference options) through
+   tpinn_torch.cases.poiseuille_flow.main with TPINN_USE_PALLAS=1, the
+   launch counts read around it (kernel 5 launches, kernels 1-4 do not),
+   held against the same round through the plain versions on the CPU and
+   against the round on the card with the opt-in off (kernel 5 then does
+   not launch), all at the history bar 1e-8; the LM iteration's time split
+   into residual evaluation, fast Gram, the JᵀJ download, the host eigh and
+   the accept loop.
 
 The line before the last is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.
@@ -73,6 +89,9 @@ REPS = 10
 # its final global loss (PERF.md section 2)
 SCIPY_HEAD_ITERS = 20
 FINAL_LOSS_BAR = 0.05
+BUNDLE_SIZES = (100, 1000, 262_144, 1_048_576)
+LM_ITERS = 10
+HISTORY_BAR = 1e-8
 
 
 def phase(name):
@@ -151,6 +170,36 @@ def poisson_flops_per_point(widths, bwd):
         if l > 0:
             f += 2 * S * wi * wo
     return f
+
+
+def bundle_flops_per_point(widths, dim):
+    """Floating-point operations one point needs in kernel 5: layer 0
+    forms the value stream only (its tangent streams are rows of W0, its
+    second-order streams zero); every later layer multiplies all 1 + 2·dim
+    streams; per hidden neuron tanh, tanh' (2), a = −2·v·tanh' (2), dim
+    tangent products and per second-order stream a·z_g·z_g + tanh'·z_h
+    (4, 2 at layer 0 where z_h is zero)."""
+    S = 1 + 2 * dim
+    L = len(widths) - 1
+    f = 0
+    for l in range(L):
+        wi, wo = widths[l], widths[l + 1]
+        f += (2 * wi * wo if l == 0 else 2 * S * wi * wo) + wo
+        if l < L - 1:
+            f += wo * (1 + 2 + 2 + dim + dim * (2 if l == 0 else 4))
+    return f
+
+
+def bundle_problem(widths, n, seed, dtype, device):
+    """Seeded params of the given widths and points in (-1, 1)^d_in."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    params = random_params(rng, widths, dtype, device)
+    x = torch.tensor(rng.uniform(-1.0, 1.0, (n, widths[0])), dtype=dtype,
+                     device=device)
+    return params, x
 
 
 def poisson_problem(n, seed, dtype, device):
@@ -319,6 +368,8 @@ def main():
     from tpinn_torch.kernels import mlp_bundle as mb
 
     dev = torch.device("cuda", 0)
+    # phases 1-10 run the default routing; phase 11 sets the opt-in itself
+    os.environ.pop("TPINN_USE_PALLAS", None)
     t_all = time.perf_counter()
     record = {}
 
@@ -707,6 +758,164 @@ def main():
                                     d2h_ms=d2h_ms)
         record["poisson_slice"] = slices
 
+    with phase("9 kernel 5 (taylor_bundle) vs plain, float64"):
+        b_cases = [("2-32-32-32-3 n=1000", (2,) + WIDTHS + (3,), 1000),
+                   ("2-32-32-32-3 n=100", (2,) + WIDTHS + (3,), 100),
+                   ("2-32-32-32-3 n=4099", (2,) + WIDTHS + (3,), 4099),
+                   ("3-32-32-32-3 n=1000", (3,) + WIDTHS + (3,), 1000),
+                   ("2-20-20-20-1 n=1000", POISSON_WIDTHS, 1000)]
+        for name, widths, n in b_cases:
+            params, x = bundle_problem(widths, n, 21, f64, dev)
+            got = mb.mlp_taylor_bundle(params, x)
+            torch.cuda.synchronize()
+            ref = mb.mlp_taylor_bundle_plain(params, x)
+            errs_b = []
+            for part, a, b in zip(("value", "jac", "hdiag"), got, ref):
+                if a.shape != b.shape:
+                    raise AssertionError(f"{name} {part}: shape {a.shape} "
+                                         f"!= {b.shape}")
+                scale = float(torch.max(torch.abs(b)))
+                e = float(torch.max(torch.abs(a - b)))
+                if not e <= 1e-12 * scale:
+                    raise AssertionError(f"{name} {part}: max abs err "
+                                         f"{e:.3e} above 1e-12 x {scale:.3e}")
+                errs_b.append((part, e, e / scale))
+            again = mb.mlp_taylor_bundle(params, x)
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                raise AssertionError(f"{name}: repeat call not bit-identical")
+            p32 = [{k: t.float() for k, t in p.items()} for p in params]
+            got32 = mb.mlp_taylor_bundle(p32, x.float())
+            e32 = max(float(torch.max(torch.abs(a.double() - b)))
+                      / float(torch.max(torch.abs(b)))
+                      for a, b in zip(got32, got))
+            print(f"  {name}: " + ", ".join(
+                f"{p} max abs {e:.2e} (rel to max {r:.2e})"
+                for p, e, r in errs_b)
+                + f"; repeat bit-identical; float32 vs float64 max abs / "
+                f"max|ref| {e32:.2e}")
+            record[f"bundle {name}"] = {"errs": errs_b, "f32_err": e32}
+            if name == "2-32-32-32-3 n=1000":
+                errs["taylor_bundle"] = max(e for _, e, _ in errs_b)
+
+    with phase("10 kernel 5 times (CUDA events, median of 10 runs)"):
+        widths = (2,) + WIDTHS + (3,)
+        n_par = sum((a + 1) * b for a, b in zip(widths[:-1], widths[1:]))
+        for dtype in (torch.float32, torch.float64):
+            dname = str(dtype).split(".")[1]
+            for n in BUNDLE_SIZES:
+                params, x = bundle_problem(widths, n, 7, dtype, dev)
+
+                def plain():
+                    with torch.no_grad():
+                        mb.mlp_taylor_bundle_plain(params, x)
+
+                inner = 20 if n <= 10_000 else 1
+                row = {"kernel": cuda_ms(lambda: mb.mlp_taylor_bundle(
+                           params, x), inner),
+                       "plain": cuda_ms(plain, inner)}
+                item = x.element_size()
+                ops = n * bundle_flops_per_point(widths, 2)
+                nbytes = item * (n * 2 + n_par + n * 3 * 5)
+                row["bound"], row["bound_by"] = bound(ops, nbytes, dname)
+                row["ops_ms"] = 1e3 * ops / PEAK_FLOPS[dname]
+                row["bytes_ms"] = 1e3 * nbytes / PEAK_BYTES
+                row["flops_per_point"] = ops / n
+                times[("bundle", dname, n)] = row
+                print(f"  kernel 5 {dname} n={n}: {row['kernel']:.4f} ms "
+                      f"(bound {row['bound']:.5f} by {row['bound_by']}: "
+                      f"operations {row['ops_ms']:.5f}, bytes "
+                      f"{row['bytes_ms']:.5f}; plain {row['plain']:.4f})",
+                      flush=True)
+                del params, x
+                torch.cuda.empty_cache()
+        record["times"].update({" ".join(map(str, k)): r
+                                for k, r in times.items()
+                                if k[0] == "bundle"})
+
+    with phase("11 the slice: Poiseuille LM round under TPINN_USE_PALLAS=1"):
+        from tpinn_torch.cases import poiseuille_flow
+
+        def lm_round(device, opt_in):
+            if opt_in:
+                os.environ["TPINN_USE_PALLAS"] = "1"
+            try:
+                with tempfile.TemporaryDirectory() as td:
+                    mb.reset_launch_counts()
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    drv = poiseuille_flow.main(
+                        td, adam_epochs=0, second_round="lm",
+                        epochs=LM_ITERS, device=device)
+                    torch.cuda.synchronize()
+                    return (drv.pb, time.perf_counter() - t0,
+                            dict(mb.LAUNCHES))
+            finally:
+                os.environ.pop("TPINN_USE_PALLAS", None)
+
+        lm_pb, lm_wall, lm_launches = lm_round("cuda", True)
+        h = lm_pb.history
+        n_iters = len(lm_pb.lm_times)
+        print(f"  launches on the main path: {lm_launches}; {n_iters} LM "
+              f"iterations, wall {lm_wall:.2f} s")
+        others = {k: v for k, v in lm_launches.items() if k != "taylor_bundle"}
+        if lm_launches["taylor_bundle"] < 1 or any(others.values()):
+            raise AssertionError(f"main path missed kernel 5 or ran another "
+                                 f"kernel: {lm_launches}")
+        if lm_launches["taylor_bundle"] % 3:
+            raise AssertionError("kernel 5 launched other than three times "
+                                 "(PDE bundle + two outflow bundles) per "
+                                 f"residual evaluation: {lm_launches}")
+        logs = [h.loss_global] + [e["log"] for e in h.losses.values()] \
+            + [e["log"] for e in h.losses_test.values()]
+        if not all(np.isfinite(v).all() for v in logs):
+            raise AssertionError("non-finite logged loss")
+        if h.round_names != ["keras_Adam", "jax_LM"]:
+            raise AssertionError(f"rounds {h.round_names}")
+        if not h.loss_global[-1] < 0.1 * h.loss_global[0]:
+            raise AssertionError("LM did not reduce the loss tenfold")
+        cpu_pb, cpu_wall, _ = lm_round("cpu", True)
+        off_pb, off_wall, off_launches = lm_round("cuda", False)
+        if off_launches["taylor_bundle"]:
+            raise AssertionError(f"kernel 5 launched with the opt-in off: "
+                                 f"{off_launches}")
+        devs = {}
+        for name, other in (("cpu", cpu_pb), ("opt-in off", off_pb)):
+            if other.history.iters != h.iters:
+                raise AssertionError(f"{name}: logs at other iterations "
+                                     f"({other.history.iters} / {h.iters})")
+            devs[name] = rel_dev(other.history, h,
+                                 list(range(len(h.iters))))
+        print(f"  loss_global {h.loss_global[0]:.6e} -> "
+              f"{h.loss_global[-1]:.6e}; max rel deviation of every log "
+              f"against the plain versions on the CPU {devs['cpu']:.2e} "
+              f"(CPU wall {cpu_wall:.2f} s), against the card with the "
+              f"opt-in off {devs['opt-in off']:.2e} (wall {off_wall:.2f} s)")
+        if max(devs.values()) > HISTORY_BAR:
+            raise AssertionError(f"LM histories disagree: {devs}")
+        split = {}
+        for name, pb_ in (("opt-in", lm_pb), ("opt-in off", off_pb),
+                          ("cpu", cpu_pb)):
+            parts = sorted({k for t in pb_.lm_times for k in t})
+            later = pb_.lm_times[1:] or pb_.lm_times
+            split[name] = {
+                "first": pb_.lm_times[0],
+                "median": {k: float(np.median([t.get(k, 0.0)
+                                               for t in later]))
+                           for k in parts}}
+            med = split[name]["median"]
+            print(f"  LM iteration ({name}), median of iterations 2-"
+                  f"{len(pb_.lm_times)}, ms: " + ", ".join(
+                      f"{k} {1e3 * med[k]:.2f}" for k in
+                      ("residuals", "gram", "download", "eigh", "accept",
+                       "log") if k in med)
+                  + f"; first iteration {1e3 * sum(split[name]['first'].values()):.1f}")
+        record["lm_slice"] = {"launches": lm_launches, "wall_s": lm_wall,
+                              "cpu_wall_s": cpu_wall,
+                              "off_wall_s": off_wall, "devs": devs,
+                              "loss_first": h.loss_global[0],
+                              "loss_last": h.loss_global[-1],
+                              "split": split}
+
     def kernel_row(name, key, route_src, replaces, launches, row):
         return {"name": name, "route": "cuda", "source": route_src,
                 "replaces": replaces, "launches": launches[name],
@@ -730,6 +939,14 @@ def main():
         kernel_row("poisson_residual_fwd", "fwd", p_src, f"{ref}:1209",
                    p_launches, p_row),
     ]
+    b_row = times[("bundle", "float64", 1000)]
+    kernels.append({
+        "name": "taylor_bundle", "route": "cuda",
+        "source": "tpinn_torch/kernels/csrc/taylor_bundle.cu",
+        "replaces": f"{ref}:235", "launches": lm_launches["taylor_bundle"],
+        "max_abs_err": errs["taylor_bundle"], "ms": b_row["kernel"],
+        "plain_ms": b_row["plain"], "bound_ms": b_row["bound"],
+        "bound_by": b_row["bound_by"], "library_ms": None})
     total = time.perf_counter() - t_all
     print(f"total {total:.1f} s")
     if args.out:

@@ -165,3 +165,49 @@ def test_poisson_round_on_card_matches_cpu(cuda, tmp_path):
     a = np.array(gpu.history.loss_global)
     b = np.array(cpu.history.loss_global)
     np.testing.assert_allclose(a, b, rtol=1e-8)
+
+
+def _bundle_case(d_in, d_out, n, seed, device, widths=(32, 32, 32)):
+    rng = np.random.default_rng(seed)
+    sizes = (d_in,) + widths + (d_out,)
+    params = []
+    for a, b in zip(sizes[:-1], sizes[1:]):
+        lim = np.sqrt(6.0 / (a + b))
+        params.append({
+            "kernel": torch.tensor(rng.uniform(-lim, lim, (a, b)), device=device),
+            "bias": torch.tensor(rng.uniform(-0.1, 0.1, b), device=device)})
+    x = torch.tensor(rng.uniform(-1, 1, (n, d_in)), device=device)
+    return params, x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d_in,d_out,n,dim", [(2, 3, 1000, None),
+                                              (2, 3, 4099, None),
+                                              (3, 3, 1000, None),
+                                              (3, 3, 1000, 2),
+                                              (2, 1, 1000, None)])
+def test_taylor_bundle_matches_plain_on_card(cuda, d_in, d_out, n, dim):
+    """Kernel 5 against its plain version (max |Δ| ≤ 1e-12·max|ref| per
+    output), repeat calls bit-identical, one launch per call."""
+    params, x = _bundle_case(d_in, d_out, n, 13, cuda)
+    before = mb.LAUNCHES["taylor_bundle"]
+    got = mb.mlp_taylor_bundle(params, x, dim)
+    assert mb.LAUNCHES["taylor_bundle"] == before + 1
+    ref = mb.mlp_taylor_bundle_plain(params, x, dim)
+    for a, b in zip(got, ref):
+        assert a.shape == b.shape
+        assert float(torch.max(torch.abs(a - b))) <= \
+            1e-12 * float(torch.max(torch.abs(b)))
+    again = mb.mlp_taylor_bundle(params, x, dim)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+def test_taylor_bundle_backward_raises_on_card(cuda):
+    params, x = _bundle_case(2, 3, 64, 5, cuda)
+    leaves = [{k: t.clone().requires_grad_(True) for k, t in p.items()}
+              for p in params]
+    value, jac, hdiag = mb.mlp_taylor_bundle(leaves, x)
+    flat = [t for p in leaves for t in (p["kernel"], p["bias"])]
+    with pytest.raises(RuntimeError, match="TPINN_USE_PALLAS"):
+        torch.autograd.grad((value.sum() + jac.sum() + hdiag.sum()), flat)

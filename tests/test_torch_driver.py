@@ -24,7 +24,8 @@ from tpinn_torch.driver import StandardNSDriver
 from tpinn_torch.history import History
 from tpinn_torch.losses import PrecomputedMeanSquares
 from tpinn_torch.optimize import _log_iters, minimize
-from tpinn_torch.optimizers import Adam
+from tpinn_torch.problem import OptimizationProblem
+from tpinn_torch.optimizers import SGD, Adam, AdamW
 
 torch.set_num_threads(1)
 
@@ -172,3 +173,76 @@ def test_adam_matches_optax():
         adam.step([xt], [g])
     np.testing.assert_allclose(xt.detach().numpy(), np.asarray(xj),
                                rtol=1e-13, atol=1e-15)
+
+
+def _quadratic(seed=0):
+    rng = np.random.default_rng(seed)
+    A = rng.normal(size=(6, 6))
+    A = A @ A.T + np.eye(6)
+    return A, rng.normal(size=6), rng.normal(size=6)
+
+
+@pytest.mark.parametrize("name,kw", [
+    ("sgd", {}), ("sgd", {"momentum": 0.9}),
+    ("sgd", {"momentum": 0.9, "nesterov": True}),
+    ("adamw", {}), ("adamw", {"weight_decay": 0.1, "b1": 0.8}),
+])
+def test_sgd_and_adamw_match_optax(name, kw):
+    """SGD and AdamW in optax's operation order, as tpinn's shims build
+    them (optax.sgd / optax.adamw with the same keyword arguments): the
+    same trajectory to the last bits on a quadratic in float64."""
+    import jax
+    import optax
+
+    A, b, x0 = _quadratic(1)
+    lr = 1e-2
+    opt = {"sgd": optax.sgd, "adamw": optax.adamw}[name](lr, **kw)
+    ours = {"sgd": SGD, "adamw": AdamW}[name](lr, **kw)
+    assert ours.name == {"sgd": "SGD", "adamw": "AdamW"}[name]
+    xj = jnp.asarray(x0)
+    st = opt.init(xj)
+    grad = jax.jit(jax.grad(lambda x: 0.5 * x @ (jnp.asarray(A) @ x)
+                            - jnp.asarray(b) @ x))
+    xt = torch.tensor(x0)
+    ours.init([xt])
+    At, bt = torch.as_tensor(A), torch.as_tensor(b)
+    for _ in range(50):
+        u, st = opt.update(grad(xj), st, xj)
+        xj = optax.apply_updates(xj, u)
+        ours.step([xt], [At @ xt - bt])
+    np.testing.assert_allclose(xt.numpy(), np.asarray(xj), rtol=1e-13,
+                               atol=1e-15)
+
+
+@pytest.mark.parametrize("opt,name", [(1e-3, "keras_Adam"),
+                                      (SGD(1e-3), "keras_SGD"),
+                                      (AdamW(1e-3), "keras_AdamW"),
+                                      (None, "keras_Adam")])
+def test_minimize_keras_takes_a_rate_or_any_ported_optimizer(tmp_path, opt,
+                                                             name):
+    """minimize(pb, "keras", ...) takes what tpinn's takes: a learning rate
+    (Adam), SGD, AdamW or nothing (Adam(1e-2)); the round is named after
+    the optimizer.  A number gives the same round as Adam at that rate."""
+    opts = SimulationOptions(epochs=0, n_pde=20, n_bc=6, n_vel=4, n_test=10)
+    spec = pf_torch.build_spec()
+    spec.grid_shape = (10, 5)
+
+    def run(optimizer):
+        d = StandardNSDriver(spec, opts, base_dir=str(tmp_path),
+                             device="cpu", save_results=False)
+        pb = OptimizationProblem(d.model, d.losses, d.losses_test)
+        minimize(pb, "keras", optimizer, num_epochs=3)
+        return pb.history
+
+    h = run(opt)
+    assert h.round_names == [name] and h.iters == [0, 3]
+    assert h.loss_global[-1] != h.loss_global[0]
+    if opt == 1e-3:
+        assert h.loss_global == run(Adam(1e-3)).loss_global
+
+
+def test_minimize_keras_refuses_an_optax_transform():
+    import optax
+
+    with pytest.raises(TypeError, match="JAX package"):
+        minimize(None, "keras", optax.adam(1e-3))

@@ -94,3 +94,57 @@ def test_model_raises_without_device_when_no_cuda(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         MLP(2, 3, width=4, depth=1)
+
+
+def test_set_params_refuses_a_short_list():
+    m = MLP(2, 3, width=8, depth=3, device="cpu")
+    before = [t.clone() for t in m.flat_params()]
+    with pytest.raises(ValueError, match="1 layers given for a model of 4"):
+        m.set_params(m.params[:1])
+    assert all(torch.equal(a, b) for a, b in zip(before, m.flat_params()))
+
+
+@pytest.mark.parametrize("layer,key,shape", [(1, "kernel", (8,)),
+                                             (1, "kernel", (8, 4)),
+                                             (3, "bias", (1,))])
+def test_set_params_refuses_a_wrong_shape(layer, key, shape):
+    """A mis-shaped array is not broadcast over the parameter: the error
+    names the layer, the key and both shapes, and nothing is copied."""
+    m = MLP(2, 3, width=8, depth=3, device="cpu")
+    before = [t.clone() for t in m.flat_params()]
+    params = [{k: t.detach().clone() for k, t in p.items()} for p in m.params]
+    params[layer][key] = torch.ones(shape, dtype=torch.float64)
+    want = tuple(m.params[layer][key].shape)
+    with pytest.raises(ValueError, match=rf"layer {layer} '{key}' has shape "
+                       rf"\({shape[0]},.*the model's is \({want[0]},"):
+        m.set_params(params)
+    assert all(torch.equal(a, b) for a, b in zip(before, m.flat_params()))
+
+
+def test_forward_casts_numpy_and_float32_batches():
+    """As tpinn's Model.__call__: any array is cast to the model's dtype."""
+    jm = JaxMLP(2, 3, width=8, depth=2, seed=2, dtype=jnp.float64)
+    tm = MLP(2, 3, width=8, depth=2, device="cpu")
+    tm.set_params(params_from_numpy(_jax_params_np(jm)))
+    x = np.random.default_rng(3).uniform(-1, 1, (17, 2))
+    ref = tm(torch.as_tensor(x)).detach()
+    out_np = tm(x)
+    assert out_np.dtype == torch.float64
+    assert torch.equal(out_np.detach(), ref)
+    np.testing.assert_allclose(out_np.detach().numpy(),
+                               np.asarray(jm(jnp.asarray(x))), rtol=1e-12,
+                               atol=1e-12)
+    x32 = torch.as_tensor(x, dtype=torch.float32)
+    out32 = tm(x32).detach()
+    assert out32.dtype == torch.float64
+    assert torch.equal(out32, tm(x32.double()).detach())
+    np.testing.assert_allclose(out32.numpy(),
+                               np.asarray(jm(jnp.asarray(x, jnp.float32))),
+                               rtol=1e-12, atol=1e-12)
+
+
+def test_forward_keeps_the_graph_of_a_watched_batch():
+    tm = MLP(2, 3, width=8, depth=2, device="cpu")
+    x = torch.rand(5, 2, dtype=torch.float64, requires_grad=True)
+    (g,) = torch.autograd.grad(tm(x)[:, 0].sum(), x)
+    assert g.shape == (5, 2) and torch.isfinite(g).all()

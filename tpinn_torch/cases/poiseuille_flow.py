@@ -5,6 +5,12 @@ driven by a 1e6 Pa pressure drop: Dirichlet walls and parabolic inflow,
 traction (Neumann) outflow and noisy velocity-fitting points.  Run with::
 
     python -m tpinn_torch.cases.poiseuille_flow --base-dir OUT --adam-epochs 100
+    python -m tpinn_torch.cases.poiseuille_flow --base-dir OUT --adam-epochs 0 \
+        --second-round lm --epochs 4
+
+``--epochs`` is the second round's iteration count (default: the options'
+``TRAINING EPOCHS``).  ``TPINN_USE_PALLAS=1`` in the environment routes the
+LM round's residual evaluations through the Taylor-bundle kernel.
 """
 
 from __future__ import annotations
@@ -49,11 +55,15 @@ def default_options() -> SimulationOptions:
 
 def main(base_dir: str, adam_epochs: int = 100, save_results: bool = True,
          seed: int = 0, device=None, second_round: str = "none",
-         options_file=None) -> StandardNSDriver:
-    """Train the case into a run folder under ``base_dir``; the options come
-    from ``options_file`` when given, else the reference defaults."""
+         options_file=None, epochs=None) -> StandardNSDriver:
+    """Train the case into a run folder under ``base_dir``: Adam for
+    ``adam_epochs``, then ``second_round`` for ``epochs`` iterations (the
+    options' epochs when None); the options come from ``options_file`` when
+    given, else the reference defaults."""
     opts = (SimulationOptions.from_file(options_file)
             if options_file else default_options())
+    if epochs is not None:
+        opts.epochs = epochs
     driver = StandardNSDriver(
         build_spec(), opts, base_dir=base_dir, save_results=save_results,
         seed=seed, second_round=second_round, adam_epochs=adam_epochs,
@@ -71,6 +81,11 @@ if __name__ == "__main__":
                     help="a simulation_options.txt in the legacy format")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None)
+    ap.add_argument("--second-round", default="none",
+                    choices=["none", "lm", "jax-lm", "gn"])
+    ap.add_argument("--epochs", type=int, default=None,
+                    help="second-round iterations (default: the options')")
     args = ap.parse_args()
     main(args.base_dir, adam_epochs=args.adam_epochs, seed=args.seed,
-         device=args.device, options_file=args.options)
+         device=args.device, options_file=args.options,
+         second_round=args.second_round, epochs=args.epochs)

@@ -10,14 +10,19 @@
   6  noise injection               → tpinn_torch.geometry.generate_noise
   7  losses                        → tpinn_torch.pipeline builders
   8  model                         → tpinn_torch.models.MLP
-  9  training: the Adam round      → tpinn_torch.optimize.minimize
+  9  training: the Adam round, then the second round (run_second_round)
 
-This port covers the steady case on one device with the Adam round only
-(``second_round="none"``).  The PDE losses of a plain tanh MLP go through
-the one-pass fused objective: on a CUDA device one launch of the residual
-kernel per Adam step.  ``from_arrays`` builds the driver from given grid,
-splits, boundary data, fit targets and initial parameters, so a run can
-start from exactly the data of another implementation.
+This port covers the steady case on one device with the Adam round and the
+Levenberg–Marquardt second round (``second_round`` "lm", "jax-lm" or "gn";
+"none" for none).  The PDE losses of a plain tanh MLP go through the
+one-pass fused objective (on a CUDA device one launch of the residual
+kernel per Adam step), except in an LM-bound driver: LM needs the stacked
+residual vector, so it keeps the unfused ``LossMeanSquares`` PDE losses on
+one shared ``ResidualBundle`` (kernel 5 under ``TPINN_USE_PALLAS=1``).
+Every training loss carries its ``point_residual`` for the LM round's
+per-point Gram.  ``from_arrays`` builds the driver from given grid, splits,
+boundary data, fit targets and initial parameters, so a run can start from
+exactly the data of another implementation.
 """
 
 from __future__ import annotations
@@ -46,15 +51,62 @@ from tpinn_torch.pipeline import (
     FusedNSWeightedObjective,
     NSPhysics,
     ResidualBundle,
+    dirichlet_point_residual,
     dirichlet_residual,
     mass_residual,
     momentum_residual,
+    neumann_point_residual,
     neumann_residual,
+    pde_point_residuals,
     use_fused_pde_losses,
 )
 from tpinn_torch.problem import OptimizationProblem
 
 BndValue = Union[float, Callable, None]
+
+SECOND_ROUND_CHOICES = (
+    "scipy", "scipy-parity", "scipy-host", "jax", "jax-bfgs", "bfgs",
+    "lm", "jax-lm", "gn", "adam", "none",
+)
+LM_ROUNDS = ("lm", "jax-lm", "gn")
+# known second rounds that are not ported yet -> (what they run, ROADMAP.md
+# port queue 1 item)
+_UNPORTED_ROUNDS = {
+    "scipy": ("the on-device dense BFGS round", 2),
+    "jax-bfgs": ("the on-device dense BFGS round", 2),
+    "bfgs": ("the on-device dense BFGS round", 2),
+    "scipy-parity": ("the driver's routing of the host scipy round", 2),
+    "scipy-host": ("the driver's routing of the host scipy round", 2),
+    "jax": ("the on-device L-BFGS round", 4),
+    "adam": ("the cosine-decay Adam second round", 13),
+}
+
+
+def check_second_round(second_round: Optional[str]) -> None:
+    """Raise for a second round the port cannot run: NotImplementedError
+    naming its ROADMAP.md item for a known one, ValueError for an unknown
+    name."""
+    if second_round in (None, "none") or second_round in LM_ROUNDS:
+        return
+    if second_round in _UNPORTED_ROUNDS:
+        what, item = _UNPORTED_ROUNDS[second_round]
+        raise NotImplementedError(
+            f"second_round={second_round!r} ({what}) is not ported yet: only "
+            f"the Adam round and the LM round are (ROADMAP.md, port queue "
+            f"1, item {item})")
+    raise ValueError(f"unknown second_round {second_round!r}; choices: "
+                     f"{SECOND_ROUND_CHOICES}")
+
+
+def run_second_round(pb: OptimizationProblem, second_round: Optional[str],
+                     epochs: int) -> None:
+    """The one routing table for the second optimizer round: "lm",
+    "jax-lm" and "gn" run Levenberg–Marquardt for ``epochs`` iterations;
+    "none" / None run nothing; every other name raises
+    (``check_second_round``)."""
+    check_second_round(second_round)
+    if second_round in LM_ROUNDS:
+        minimize(pb, "jax", "LM", num_epochs=epochs)
 
 
 @dataclasses.dataclass
@@ -104,10 +156,7 @@ class StandardNSDriver:
             raise NotImplementedError(
                 "the unsteady driver path is not ported yet (ROADMAP.md, "
                 "port queue 1)")
-        if second_round not in ("none", None):
-            raise NotImplementedError(
-                f"second_round={second_round!r}: only the Adam round is "
-                "ported (BFGS / L-BFGS / LM rounds: ROADMAP.md, port queue 1)")
+        check_second_round(second_round)
         self.spec = spec
         self.opts = opts
         self.base_dir = base_dir
@@ -237,13 +286,24 @@ class StandardNSDriver:
         LMS = LossMeanSquares
         take = lambda idx: self.dom_grid[torch.as_tensor(idx, device=self.device)]
 
+        def dir_pr(comp, x, rhs):
+            r = torch.broadcast_to(torch.as_tensor(rhs, dtype=x.dtype,
+                                                   device=x.device),
+                                   (x.shape[0],))
+            return (dirichlet_point_residual(model, comp), (x, r))
+
         losses = []
         if opts.use_collloss:
             x_pde = take(self.idx_set["PDE"])
             weights = (spec.weight("PDE_MASS", 1e1),
                        spec.weight("PDE_MOMU", 1e0),
                        spec.weight("PDE_MOMV", 1e0))
-            if use_fused_pde_losses(model, spec.unsteady, spec.dim_in):
+            # the LM round stacks every training loss's residual vector; the
+            # fused objective exposes only the three MSEs, so an LM-bound
+            # driver keeps the unfused PDE losses
+            wants_residuals = self.second_round in LM_ROUNDS
+            if not wants_residuals and use_fused_pde_losses(
+                    model, spec.unsteady, spec.dim_in):
                 # one-pass objective: loss + log MSEs + parameter gradients
                 # from one kernel launch (its plain twin on the CPU)
                 fused = FusedNSWeightedObjective(model, x_pde, spec.physics,
@@ -255,14 +315,21 @@ class StandardNSDriver:
                     PrecomputedMeanSquares("PDE_MOMV", f_momv, weight=weights[2]),
                 ]
             else:
-                bundle = ResidualBundle(model, x_pde, unsteady=spec.unsteady)
+                # its own name: the closures read it when called, after the
+                # boundary loop below has rebound ``bundle``
+                pde_bundle = ResidualBundle(model, x_pde,
+                                            unsteady=spec.unsteady)
+                p_mass, p_momu, p_momv = pde_point_residuals(
+                    model, spec.physics, norm, spec.unsteady)
                 losses += [
-                    LMS("PDE_MASS", lambda: mass_residual(bundle, norm),
-                        weight=weights[0]),
+                    LMS("PDE_MASS", lambda: mass_residual(pde_bundle, norm),
+                        weight=weights[0], point_residual=(p_mass, (x_pde,))),
                     LMS("PDE_MOMU", lambda: momentum_residual(
-                        bundle, 0, spec.physics, norm), weight=weights[1]),
+                        pde_bundle, 0, spec.physics, norm), weight=weights[1],
+                        point_residual=(p_momu, (x_pde,))),
                     LMS("PDE_MOMV", lambda: momentum_residual(
-                        bundle, 1, spec.physics, norm), weight=weights[2]),
+                        pde_bundle, 1, spec.physics, norm), weight=weights[2],
+                        point_residual=(p_momv, (x_pde,))),
                 ]
 
         if opts.use_boundary:
@@ -276,27 +343,34 @@ class StandardNSDriver:
                         direction = spec.neumann[(edge, comp)]
                         bundle = ResidualBundle(model, xb,
                                                 unsteady=spec.unsteady)
+                        rb = torch.broadcast_to(rhs, (xb.shape[0],))
                         losses.append(LMS(
                             f"BCN_{tag}",
                             (lambda b=bundle, c=comp, d=direction, r=rhs:
                              neumann_residual(b, c, d, spec.physics, norm,
                                               rhs=r)),
-                            weight=spec.weight("BCN", 1e0)))
+                            weight=spec.weight("BCN", 1e0),
+                            point_residual=(neumann_point_residual(
+                                model, comp, direction, spec.physics, norm,
+                                spec.unsteady), (xb, rb))))
                     else:
                         losses.append(LMS(
                             f"BCD_{tag}",
                             (lambda x=xb, c=comp, r=rhs:
                              dirichlet_residual(model, x, c, r)),
-                            weight=spec.weight("BCD", 1e0)))
+                            weight=spec.weight("BCD", 1e0),
+                            point_residual=dir_pr(comp, xb, rhs)))
 
         x_vel = take(self.idx_set["Vel"])
         if opts.fit_velocity:
             fit_u, fit_v = self.sol_noise[0], self.sol_noise[1]
             losses += [
                 LMS("Fit_u", lambda: dirichlet_residual(model, x_vel, 0, fit_u),
-                    weight=spec.weight("FIT", 1e0)),
+                    weight=spec.weight("FIT", 1e0),
+                    point_residual=dir_pr(0, x_vel, fit_u)),
                 LMS("Fit_v", lambda: dirichlet_residual(model, x_vel, 1, fit_v),
-                    weight=spec.weight("FIT", 1e0)),
+                    weight=spec.weight("FIT", 1e0),
+                    point_residual=dir_pr(1, x_vel, fit_v)),
             ]
 
         it = self.idx_set["Test"]
@@ -310,15 +384,18 @@ class StandardNSDriver:
         return losses, losses_test
 
     # ------------------------------------------------------------------ train
-    def train(self) -> OptimizationProblem:
+    def train(self, epochs: Optional[int] = None) -> OptimizationProblem:
         """The Adam round (``adam_epochs`` full-batch steps at ``adam_lr``),
-        then History_Loss.json in the run folder."""
+        then the second round for ``epochs`` iterations (default
+        ``opts.epochs``), then History_Loss.json in the run folder."""
+        epochs = self.opts.epochs if epochs is None else epochs
         self.folder = experiment.prepare_folder(self.base_dir,
                                                 self.save_results)
         pb = OptimizationProblem(self.model, self.losses, self.losses_test)
         self.pb = pb
         minimize(pb, "keras", Adam(learning_rate=self.adam_lr),
                  num_epochs=self.adam_epochs)
+        run_second_round(pb, self.second_round, epochs)
         pb.save_history(os.path.join(self.folder, "History_Loss.json"))
         return pb
 

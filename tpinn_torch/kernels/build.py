@@ -22,7 +22,7 @@ from typing import Dict, Optional
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
-SOURCES = ("ns_residual.cu", "poisson_residual.cu")
+SOURCES = ("ns_residual.cu", "poisson_residual.cu", "taylor_bundle.cu")
 HEADERS = ("taylor_mlp.cuh",)
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)), ".cache",
                          "tpinn_torch")
@@ -53,6 +53,11 @@ _SIGNATURES = {
                                  _I, _P, _P, _P],
     "poisson_residual_fwd_f32": [_P, _P, _P, _P, _P, _I, _I, _D, _D, _I, _I,
                                  _I, _P, _P, _P],
+    "taylor_bundle_plan": [_I, _P, _I, _I, _I, _I, _P, _P, _P],
+    "taylor_bundle_f64": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P,
+                          _P, _P],
+    "taylor_bundle_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P,
+                          _P, _P],
 }
 
 

@@ -20,6 +20,13 @@ scalar MLP u(x, y) and r = (Δu + f)/normalization:
 * ``poisson_residual_fwd`` — the forward: Σ r² only, the forward of
   ``poisson_residual_mse``, whose backward is ``poisson_residual_bwd``.
 
+One more (csrc/taylor_bundle.cu) replaces the JAX package's Taylor-bundle
+kernel (``_kernel``, launched by its ``mlp_taylor_bundle``):
+
+* ``mlp_taylor_bundle`` — per point the value, Jacobian and Hessian
+  diagonal of a tanh MLP, forward only: as in the JAX package, reverse mode
+  through it raises.
+
 Beside each public function sits its plain PyTorch version (``*_plain``),
 built on :func:`tpinn_torch.operators.mlp_taylor_batched` and autograd.  A
 tensor on the CPU takes the plain version; a CUDA tensor launches the kernel
@@ -44,7 +51,7 @@ N_H = 2
 
 LAUNCHES: Dict[str, int] = {"ns_residual_bwd": 0, "ns_residual_fwd": 0,
                              "poisson_residual_bwd": 0,
-                             "poisson_residual_fwd": 0}
+                             "poisson_residual_fwd": 0, "taylor_bundle": 0}
 _PLANS: Dict[tuple, Tuple[int, int, int, int]] = {}
 
 
@@ -613,3 +620,150 @@ def poisson_residual_weighted_obj_plain(params, x, f, weight: float,
     mse = poisson_residual_mse_plain(params, x, f, normalization, n_valid,
                                      n_mean)
     return float(weight) * mse, mse.detach()
+
+
+# ---------------------------------------------------------------------------
+# Kernel 5: the Taylor bundle (value, Jacobian, Hessian diagonal) of a tanh
+# MLP at every point; no reduction, no reverse mode
+# ---------------------------------------------------------------------------
+
+BUNDLE_MAX_POINTS = 8  # points per block (one warp each)
+
+
+def bundle_smem_elems(widths: Sequence[int], d_in: int, dim: int,
+                      points: int) -> int:
+    """Shared-memory elements of one kernel-5 block (mirrors
+    ``BundleLayout::build`` in csrc/taylor_bundle.cu): the weights with
+    padded rows, then per point its input row and two stream buffers of
+    (1 + 2·dim)·max_width."""
+    L = len(widths) - 1
+    total = sum(widths[l] * (widths[l + 1] + 1) + widths[l + 1]
+                for l in range(L))
+    return total + points * (d_in + 2 * (1 + 2 * dim) * max(widths[1:]))
+
+
+def _check_bundle_shape(params, x, dim) -> Tuple[List[int], int]:
+    """(widths, dim) when kernel 5 takes this net and batch, else a
+    ValueError naming what it does not take.  Both routes check, so the
+    CPU never takes a shape the card would refuse."""
+    widths = _widths(params)
+    if x.dim() != 2:
+        raise ValueError(f"mlp_taylor_bundle: batch of shape "
+                         f"{tuple(x.shape)}; expected (n, d_in)")
+    d_in = int(x.shape[1])
+    dim = d_in if dim is None else int(dim)
+    if d_in not in (2, 3) or widths[0] != d_in:
+        raise ValueError(f"mlp_taylor_bundle: d_in={d_in} with widths "
+                         f"{widths}; kernel 5 takes d_in 2 or 3")
+    if not 1 <= dim <= d_in:
+        raise ValueError(f"mlp_taylor_bundle: dim={dim} for d_in={d_in}; "
+                         "kernel 5 takes 1 <= dim <= d_in")
+    L = len(widths) - 1
+    itemsize = x.element_size()
+    if (not 1 <= L <= MAX_LAYERS or max(widths[1:]) > MAX_WIDTH
+            or bundle_smem_elems(widths, d_in, dim, 1) * itemsize
+            > SMEM_LIMIT):
+        raise ValueError(
+            f"mlp_taylor_bundle: kernel 5 does not take widths {widths}: at "
+            f"most {MAX_LAYERS} layers of at most {MAX_WIDTH}, and one "
+            f"point's working set within {SMEM_LIMIT} bytes of shared memory")
+    return widths, dim
+
+
+def _bundle_launch(params, x: torch.Tensor, widths: List[int], dim: int):
+    """Kernel 5 on a CUDA batch whose shape ``_check_bundle_shape`` took."""
+    from tpinn_torch.kernels import build
+
+    if x.device.type != "cuda":
+        raise ValueError("taylor_bundle kernel runs on CUDA tensors only")
+    if x.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"taylor_bundle kernel takes float32/float64, not "
+                        f"{x.dtype}")
+    if not x.is_contiguous():
+        raise ValueError("taylor_bundle kernel takes a contiguous batch")
+    if x.shape[0] * widths[-1] * dim >= 2 ** 31:
+        raise ValueError(f"batch of {x.shape[0]} points exceeds the int32 "
+                         "range of the outputs")
+    for p in params:
+        for t in (p["kernel"], p["bias"]):
+            if t.device != x.device or t.dtype != x.dtype:
+                raise ValueError("params must share the batch's device and "
+                                 "dtype")
+            if not t.is_contiguous():
+                raise ValueError("params must be contiguous")
+    n, d_in, d_out, L = int(x.shape[0]), int(x.shape[1]), widths[-1], \
+        len(widths) - 1
+    value = torch.empty((n, d_out), dtype=x.dtype, device=x.device)
+    jac = torch.empty((n, d_out, dim), dtype=x.dtype, device=x.device)
+    hdiag = torch.empty((n, d_out, dim), dtype=x.dtype, device=x.device)
+    if n == 0:
+        return value, jac, hdiag
+    lib = build.library("taylor_bundle.cu")
+    f64 = x.dtype == torch.float64
+    w_arr = (ctypes.c_int * (L + 1))(*widths)
+    with torch.cuda.device(x.device):
+        key = ("taylor_bundle", x.device.index, x.dtype, tuple(widths), dim, n)
+        plan = _PLANS.get(key)
+        if plan is None:
+            outs = [ctypes.c_int(0) for _ in range(3)]
+            rc = lib.taylor_bundle_plan(
+                int(f64), ctypes.addressof(w_arr), L, d_in, dim, n,
+                *[ctypes.addressof(o) for o in outs])
+            if rc != 0:
+                raise RuntimeError(f"taylor_bundle_plan failed with code {rc}")
+            plan = tuple(o.value for o in outs)  # (P, G, smem bytes)
+            _PLANS[key] = plan
+        P, G, smem = plan
+        w_ptrs = (ctypes.c_void_p * L)(*[p["kernel"].data_ptr() for p in params])
+        b_ptrs = (ctypes.c_void_p * L)(*[p["bias"].data_ptr() for p in params])
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        fn = lib.taylor_bundle_f64 if f64 else lib.taylor_bundle_f32
+        rc = fn(x.data_ptr(), ctypes.addressof(w_ptrs),
+                ctypes.addressof(b_ptrs), ctypes.addressof(w_arr), L, d_in,
+                dim, n, P, G, smem, value.data_ptr(), jac.data_ptr(),
+                hdiag.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"taylor_bundle launch failed: cudaError {rc}")
+    LAUNCHES["taylor_bundle"] += 1
+    return value, jac, hdiag
+
+
+_NO_REVERSE = (
+    "reverse mode through the kernel route (mlp_taylor_bundle, selected by "
+    "TPINN_USE_PALLAS) is not supported, as in the JAX package, whose "
+    "Taylor-bundle kernel has no VJP; unset TPINN_USE_PALLAS (or set it to "
+    "0) to differentiate these losses")
+
+
+class _TaylorBundle(torch.autograd.Function):
+    """Forward: kernel 5 on a CUDA batch, its plain version on a CPU batch.
+    Backward raises (``_NO_REVERSE``)."""
+
+    @staticmethod
+    def forward(ctx, x, widths, dim, *flat):
+        params = _unflat(flat)
+        if _route(x, "mlp_taylor_bundle"):
+            return _bundle_launch(params, x, widths, dim)
+        return mlp_taylor_bundle_plain(params, x, dim)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise RuntimeError(_NO_REVERSE)
+
+
+def mlp_taylor_bundle(params, x: torch.Tensor, dim: Optional[int] = None):
+    """(value (n, d_out), jac (n, d_out, dim), hdiag (n, d_out, dim)) of a
+    tanh MLP ``params`` (list of {kernel, bias}) at every row of ``x``, over
+    input columns 0..dim-1 (dim = d_in by default).  Kernel 5 on a CUDA
+    batch, its plain version on a CPU batch; forward only on both: a
+    gradient taken through the result raises.  Shapes kernel 5 does not
+    take raise ValueError on both routes."""
+    widths, dim = _check_bundle_shape(params, x, dim)
+    return _TaylorBundle.apply(x, widths, dim, *_flat(params))
+
+
+def mlp_taylor_bundle_plain(params, x: torch.Tensor,
+                            dim: Optional[int] = None):
+    """Plain twin of ``mlp_taylor_bundle``: the closed-form propagation."""
+    return mlp_taylor_batched(params, x, int(x.shape[1]) if dim is None
+                              else int(dim))

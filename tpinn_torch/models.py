@@ -127,10 +127,28 @@ class Model(nn.Module):
 
     @torch.no_grad()
     def set_params(self, params: Sequence[dict]) -> None:
-        """Copy ``params`` (same layout, any device) into the module."""
-        for dst, src in zip(self.params, params):
+        """Copy ``params`` (same layout, any device) into the module.  The
+        layer count and every shape must match: a short list or a wrongly
+        shaped array raises ``ValueError`` instead of leaving layers as
+        they were or being broadcast over a parameter."""
+        params = list(params)
+        dst_layers = self.params
+        if len(params) != len(dst_layers):
+            raise ValueError(f"set_params: {len(params)} layers given for a "
+                             f"model of {len(dst_layers)} layers "
+                             f"(widths {list(self.layer_sizes)})")
+        srcs = []
+        for i, (dst, src) in enumerate(zip(dst_layers, params)):
             for key in ("kernel", "bias"):
-                dst[key].copy_(torch.as_tensor(src[key]))
+                t = torch.as_tensor(src[key])
+                if tuple(t.shape) != tuple(dst[key].shape):
+                    raise ValueError(
+                        f"set_params: layer {i} {key!r} has shape "
+                        f"{tuple(t.shape)}, the model's is "
+                        f"{tuple(dst[key].shape)}")
+                srcs.append((dst[key], t))
+        for d, t in srcs:
+            d.copy_(t)
 
     def apply(self, params: Sequence[dict], x: torch.Tensor) -> torch.Tensor:
         """Pure batched forward with explicit params."""
@@ -142,7 +160,11 @@ class Model(nn.Module):
                 h = self.activation(h)
         return h
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x) -> torch.Tensor:
+        """The model at a batch of any array type (numpy, float32, ...),
+        cast to the model's dtype and device; a tensor already of both is
+        used as it is, so a watched batch keeps its graph."""
+        x = torch.as_tensor(x, dtype=self.dtype, device=self.device)
         return self.apply(self.params, x)
 
     def is_plain_tanh(self) -> bool:

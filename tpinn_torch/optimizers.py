@@ -1,30 +1,60 @@
-"""Adam written in optax's operation order.
+"""First-order optimizers written in optax's operation order.
 
 ``torch.optim.Adam`` rounds differently (it folds the bias corrections into
 the step size and adds eps to the corrected root), so float64 trajectories
-would drift apart from the JAX package's.  This class repeats optax's
-``scale_by_adam`` + ``scale(-lr)`` + ``apply_updates`` exactly:
+would drift apart from the JAX package's.  These classes repeat optax's
+transforms exactly:
 
-    mu = (1 − b1) g + b1 mu;   nu = (1 − b2) g² + b2 nu;   t = t + 1
-    u  = (mu / (1 − b1^t)) / (sqrt(nu / (1 − b2^t) + eps_root) + eps)
-    p  = p + (−lr) u
+* ``Adam``: ``scale_by_adam`` + ``scale(−lr)`` + ``apply_updates``,
+
+      mu = (1 − b1) g + b1 mu;   nu = (1 − b2) g² + b2 nu;   t = t + 1
+      u  = (mu / (1 − b1^t)) / (sqrt(nu / (1 − b2^t) + eps_root) + eps)
+      p  = p + (−lr) u
+
+* ``AdamW``: the same u, then ``add_decayed_weights``: u = u + wd · p,
+  then p = p + (−lr) u;
+* ``SGD``: ``trace`` when a momentum is given (m = g + decay · m; u = m, or
+  g + decay · m with Nesterov), else u = g; then p = p + (−lr) u.
 
 The parameters are updated in place (no copy of the model per step).
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence
+from typing import List, Optional, Sequence
 
 import torch
 
 
-class Adam:
+class Optimizer:
+    """A first-order optimizer: ``init(params)`` then ``step(params,
+    grads)`` per iteration; ``name`` labels the round ``keras_<name>``."""
+
+    name = "Optimizer"
+
+    def __init__(self, learning_rate: float = 1e-2):
+        self.learning_rate = float(learning_rate)
+
+    def init(self, params: Sequence[torch.Tensor]) -> None:
+        raise NotImplementedError
+
+    def updates(self, params, grads) -> List[torch.Tensor]:
+        """The optax-order update directions u (before the −lr scale)."""
+        raise NotImplementedError
+
+    @torch.no_grad()
+    def step(self, params: Sequence[torch.Tensor],
+             grads: Sequence[torch.Tensor]) -> None:
+        for p, u in zip(params, self.updates(params, grads)):
+            p.add_(-self.learning_rate * u)
+
+
+class Adam(Optimizer):
     name = "Adam"
 
     def __init__(self, learning_rate: float = 1e-2, b1: float = 0.9,
                  b2: float = 0.999, eps: float = 1e-8, eps_root: float = 0.0):
-        self.learning_rate = float(learning_rate)
+        super().__init__(learning_rate)
         self.b1, self.b2 = float(b1), float(b2)
         self.eps, self.eps_root = float(eps), float(eps_root)
         self.count = 0
@@ -36,16 +66,53 @@ class Adam:
         self.mu = [torch.zeros_like(p) for p in params]
         self.nu = [torch.zeros_like(p) for p in params]
 
-    @torch.no_grad()
-    def step(self, params: Sequence[torch.Tensor],
-             grads: Sequence[torch.Tensor]) -> None:
+    def updates(self, params, grads) -> List[torch.Tensor]:
         b1, b2 = self.b1, self.b2
         self.count += 1
         c1 = 1.0 - b1 ** self.count
         c2 = 1.0 - b2 ** self.count
-        for i, (p, g) in enumerate(zip(params, grads)):
+        out = []
+        for i, g in enumerate(grads):
             mu = (1.0 - b1) * g + b1 * self.mu[i]
             nu = (1.0 - b2) * (g * g) + b2 * self.nu[i]
             self.mu[i], self.nu[i] = mu, nu
-            u = (mu / c1) / (torch.sqrt(nu / c2 + self.eps_root) + self.eps)
-            p.add_(-self.learning_rate * u)
+            out.append((mu / c1) / (torch.sqrt(nu / c2 + self.eps_root)
+                                    + self.eps))
+        return out
+
+
+class AdamW(Adam):
+    name = "AdamW"
+
+    def __init__(self, learning_rate: float = 1e-2, b1: float = 0.9,
+                 b2: float = 0.999, eps: float = 1e-8, eps_root: float = 0.0,
+                 weight_decay: float = 1e-4):
+        super().__init__(learning_rate, b1, b2, eps, eps_root)
+        self.weight_decay = float(weight_decay)
+
+    def updates(self, params, grads) -> List[torch.Tensor]:
+        return [u + self.weight_decay * p
+                for u, p in zip(super().updates(params, grads), params)]
+
+
+class SGD(Optimizer):
+    name = "SGD"
+
+    def __init__(self, learning_rate: float = 1e-2,
+                 momentum: Optional[float] = None, nesterov: bool = False):
+        super().__init__(learning_rate)
+        self.momentum = None if momentum is None else float(momentum)
+        self.nesterov = bool(nesterov)
+        self.trace: List[torch.Tensor] = []
+
+    def init(self, params: Sequence[torch.Tensor]) -> None:
+        self.trace = [torch.zeros_like(p) for p in params]
+
+    def updates(self, params, grads) -> List[torch.Tensor]:
+        if self.momentum is None:
+            return list(grads)
+        d = self.momentum
+        self.trace = [g + d * t for g, t in zip(grads, self.trace)]
+        if self.nesterov:
+            return [g + d * t for g, t in zip(grads, self.trace)]
+        return list(self.trace)

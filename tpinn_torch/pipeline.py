@@ -17,13 +17,18 @@ Two evaluators feed the PDE losses:
   kernel on a CUDA batch, its plain twin on the CPU);
   :class:`FusedPoissonObjective` is its Poisson member (−Δu = f);
 * :class:`ResidualBundle` + the ``*_residual`` row functions — residual
-  vectors from the closed-form Taylor streams, for models the kernel does
-  not take, and for the boundary (Neumann) losses.
+  vectors from the closed-form Taylor streams (or, under the
+  ``TPINN_USE_PALLAS`` opt-in, from kernel 5), for models the fused kernels
+  do not take, for the boundary (Neumann) losses, and for the unfused PDE
+  losses the Levenberg–Marquardt round needs;
+* the ``*_point_residual`` builders — the same rows at one point with
+  explicit params, for the LM round's per-point Gram.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import warnings
 from typing import Optional
 
@@ -59,14 +64,34 @@ def _params_key(params) -> tuple:
             torch.is_grad_enabled())
 
 
+_OFF_VALUES = ("0", "false", "False")
+
+
+def use_pallas_default() -> bool:
+    """The ``TPINN_USE_PALLAS`` opt-in, read as the JAX package reads it:
+    unset means off; "0", "false" and "False" mean off; any other value on.
+    One variable drives both packages."""
+    env = os.environ.get("TPINN_USE_PALLAS")
+    return env is not None and env not in _OFF_VALUES
+
+
 class ResidualBundle:
-    """Per-batch (value, jacobian, hessian-diag) of the (u, v, p) field,
-    by closed-form Taylor propagation (plain tanh MLPs only).
+    """Per-batch (value, jacobian, hessian-diag) of the (u, v, p) field of
+    a plain tanh MLP.
+
+    By default the closed-form Taylor propagation computes it
+    (``mlp_taylor_batched``).  With ``use_pallas`` on (the argument, else
+    the ``TPINN_USE_PALLAS`` variable; off by default) it comes from
+    :func:`tpinn_torch.kernels.mlp_bundle.mlp_taylor_bundle`: kernel 5 on a
+    CUDA batch, its plain version on the CPU, forward only in both, as in
+    the JAX package.  The residual closures of one bundle share one
+    computation per parameter state (version-keyed memo).
 
     ``spatial_cols`` maps spatial axis -> input column: (0, 1) steady,
     (1, 2) unsteady where column 0 is time."""
 
-    def __init__(self, model: Model, x: torch.Tensor, unsteady: bool = False):
+    def __init__(self, model: Model, x: torch.Tensor, unsteady: bool = False,
+                 use_pallas: Optional[bool] = None):
         if not model.is_plain_tanh():
             raise NotImplementedError(
                 "ResidualBundle is ported for plain tanh MLPs only (the "
@@ -76,13 +101,20 @@ class ResidualBundle:
         self.unsteady = unsteady
         self.dim_in = int(x.shape[-1])
         self.spatial_cols = (1, 2) if unsteady else (0, 1)
+        self.use_pallas = (use_pallas_default() if use_pallas is None
+                           else bool(use_pallas))
         self._memo = None
 
     def compute(self):
         params = self.model.params
         key = _params_key(params)
         if self._memo is None or self._memo[0] != key:
-            self._memo = (key, mlp_taylor_batched(params, self.x, self.dim_in))
+            if self.use_pallas:
+                out = mlp_bundle.mlp_taylor_bundle(params, self.x,
+                                                   dim=self.dim_in)
+            else:
+                out = mlp_taylor_batched(params, self.x, self.dim_in)
+            self._memo = (key, out)
         return self._memo[1]
 
 
@@ -299,7 +331,11 @@ def use_fused_pde_losses(model: Model, spec_unsteady: bool,
     the NS kernels for a (u, v, p) head, the Poisson kernels for a scalar
     head on (x, y).  The batch's device then picks the kernel (CUDA) or its
     plain twin (CPU).  An eligible net that no kernel takes warns, naming
-    its widths, and takes the plain PyTorch path."""
+    its widths, and takes the plain PyTorch path.  ``TPINN_USE_PALLAS``
+    set to "0", "false" or "False" switches the fused objectives off, as
+    in the JAX package."""
+    if os.environ.get("TPINN_USE_PALLAS") in _OFF_VALUES:
+        return False
     eligible = dim_in == (3 if spec_unsteady else 2) and model.is_plain_tanh()
     if not eligible:
         return False
@@ -319,3 +355,79 @@ def use_fused_pde_losses(model: Model, spec_unsteady: bool,
             stacklevel=2,
         )
     return fits
+
+
+# ---------------------------------------------------------------------------
+# Per-point residual builders (LossMeanSquares.point_residual protocol)
+# ---------------------------------------------------------------------------
+#
+# Every residual component depends on exactly one point, so the LM round's
+# Jacobian is built row by row as a vmap over points of a one-point
+# gradient.  Each builder returns fn(params, *row_args) -> scalar with
+# explicit params, on plain tensor ops that torch.func can map and
+# differentiate; the row formulas are the batch closures' (on a 1-row
+# batch).
+
+
+def taylor_tri_fn(model: Model, dim_in: int):
+    """(params, x) -> (value, jac, hdiag) with explicit params (any batch),
+    by the closed-form propagation (plain tanh MLPs)."""
+    if not model.is_plain_tanh():
+        raise NotImplementedError(
+            "point residuals are ported for plain tanh MLPs only")
+    return lambda params, x: mlp_taylor_batched(params, x, dim_in)
+
+
+def pde_point_residuals(model: Model, physics: NSPhysics,
+                        norm: Normalization, unsteady: bool = False):
+    """(mass_fn, momu_fn, momv_fn), each fn(params, xi) -> scalar."""
+    cols = (1, 2) if unsteady else (0, 1)
+    tri = taylor_tri_fn(model, 3 if unsteady else 2)
+
+    def mass_fn(params, xi):
+        _, jac, _ = tri(params, xi[None, :])
+        return _mass_rows(jac, cols)[0]
+
+    def mom_fn(k):
+        def fn(params, xi):
+            value, jac, hdiag = tri(params, xi[None, :])
+            return _momentum_rows(value, jac, hdiag, cols, k, physics,
+                                  norm)[0]
+        return fn
+
+    return mass_fn, mom_fn(0), mom_fn(1)
+
+
+def neumann_point_residual(model: Model, k: int, direction,
+                           physics: NSPhysics, norm: Normalization,
+                           unsteady: bool = False):
+    """fn(params, xi, rhs_i) -> scalar traction residual at one point."""
+    cols = (1, 2) if unsteady else (0, 1)
+    tri = taylor_tri_fn(model, 3 if unsteady else 2)
+
+    def fn(params, xi, rhs_i):
+        value, jac, _ = tri(params, xi[None, :])
+        return _neumann_rows(value, jac, cols, k, direction, physics, norm,
+                             rhs_i)[0]
+
+    return fn
+
+
+def dirichlet_point_residual(model: Model, component: int):
+    """fn(params, xi, rhs_i) -> scalar u_k(xi) − rhs_i (BC / fit)."""
+
+    def fn(params, xi, rhs_i):
+        return model.apply(params, xi[None, :])[0, component] - rhs_i
+
+    return fn
+
+
+def scaled_point_residual(fn):
+    """Wrap a point-residual fn(params, *rows) to take a trailing
+    mask-scale row (the sharded batches' exactness protocol: a zero-scaled
+    padding row has zero residual and zero gradient)."""
+
+    def wrapped(params, *rows):
+        return fn(params, *rows[:-1]) * rows[-1]
+
+    return wrapped

@@ -8,6 +8,7 @@ the model itself.
 
 from __future__ import annotations
 
+import math
 from typing import List, Sequence, Tuple, Union
 
 import numpy as np
@@ -92,6 +93,36 @@ class OptimizationProblem:
         if off != src.numel():
             raise ValueError(f"vector of {src.numel()} values for {off} "
                              "parameters")
+
+    def unravel(self, theta: torch.Tensor) -> List[dict]:
+        """A flat vector in ``ravel_pytree`` order as the model's
+        list-of-dicts layout (reshaped slices, so the result is a function
+        of ``theta`` that ``torch.func`` can differentiate)."""
+        out, off = [], 0
+        for p in self.model.params:
+            layer = {}
+            for key in ("bias", "kernel"):
+                n = p[key].numel()
+                layer[key] = theta[off:off + n].reshape(p[key].shape)
+                off += n
+            out.append(layer)
+        if off != theta.shape[-1]:
+            raise ValueError(f"vector of {theta.shape[-1]} values for {off} "
+                             "parameters")
+        return out
+
+    @torch.no_grad()
+    def residuals_at(self, vec: np.ndarray) -> torch.Tensor:
+        """The stacked residual vector R of the training losses at the
+        parameters ``vec`` (the model keeps them): every loss must be a
+        LossMeanSquares, and contributes sqrt(weight/N)·(r/normalization),
+        so ||R||² equals the global loss.  R stays on the model's device."""
+        self.set_vector(vec)
+        parts = []
+        for loss in self.losses:
+            r = (loss.fn() / loss.normalization).reshape(-1)
+            parts.append(math.sqrt(loss.weight / r.numel()) * r)
+        return torch.cat(parts)
 
     def value_and_grad_vector(self, vec: np.ndarray) -> Tuple[float, np.ndarray]:
         """(loss, gradient) at the parameters ``vec`` as a float and a
