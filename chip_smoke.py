@@ -58,7 +58,19 @@ exits non-zero:
    against the round on the card with the opt-in off (kernel 5 then does
    not launch), all at the history bar 1e-8; the LM iteration's time split
    into residual evaluation, fast Gram, the JᵀJ download, the host eigh and
-   the accept loop.
+   the accept loop;
+12. kernels 1-4 against their plain versions in float64 at widths that the
+   tile layout pads (2-7-7-3, 2-24-24-3, 2-64-64-3, 3-16-16-3, 2-7-7-1,
+   2-20-20-20-1, 2-64-64-1), d_in = 3, ragged last tiles and masked tails
+   (n_valid < n), at the bars of phases 2 and 6; repeats bit-identical;
+   kernel 2's / 4's MSEs bit-equal to kernel 1's / 3's; the launch plan
+   (points per tile, shared bytes) equal to its Python mirror;
+13. back-to-back calls of kernels 1 and 3 at two batch sizes (two grids) on
+   one stream, each result bit-equal to the first call at its size: every
+   launch's last block resets the ticket;
+14. the device time per launch of kernels 1-5 under torch.profiler beside
+   the event-timed call time, the device kernels one call launches (1 for
+   each), at the main shapes and, for kernels 1-4, at 1,048,576 points.
 
 The line before the last is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.
@@ -202,13 +214,14 @@ def bundle_problem(widths, n, seed, dtype, device):
     return params, x
 
 
-def poisson_problem(n, seed, dtype, device):
-    """Seeded 2-20-20-20-1 params, points in (0, 2π)² and the forcing."""
+def poisson_problem(n, seed, dtype, device, widths=POISSON_WIDTHS):
+    """Seeded params (2-20-20-20-1 by default), points in (0, 2π)² and the
+    forcing."""
     import numpy as np
     import torch
 
     rng = np.random.default_rng(seed)
-    params = random_params(rng, POISSON_WIDTHS, dtype, device)
+    params = random_params(rng, widths, dtype, device)
     x = torch.tensor(rng.uniform(0.0, 2 * np.pi, (n, 2)), dtype=dtype,
                      device=device)
     f = 2.0 * torch.sin(x[:, 0]) * torch.sin(x[:, 1])
@@ -257,7 +270,7 @@ def random_params(rng, widths, dtype, device):
     return params
 
 
-def problem(d_in, n, seed, dtype, device):
+def problem(d_in, n, seed, dtype, device, hidden=WIDTHS):
     """A seeded batch, params and physics: the Poiseuille coefficients and
     normalization for the steady layout, unit coefficients unsteady."""
     import numpy as np
@@ -268,7 +281,7 @@ def problem(d_in, n, seed, dtype, device):
     from tpinn_torch.pipeline import NSPhysics
 
     rng = np.random.default_rng(seed)
-    widths = (d_in,) + WIDTHS + (3,)
+    widths = (d_in,) + tuple(hidden) + (3,)
     params = random_params(rng, widths, dtype, device)
     if d_in == 2:
         x = rng.uniform(0.0, 1.0, (n, 2)) * np.array([1.0, 0.1])
@@ -330,6 +343,30 @@ def cuda_ms(fn, inner, reps=REPS, warmup=2):
         times.append(a.elapsed_time(b) / inner)
     times.sort()
     return times[len(times) // 2]
+
+
+def device_profile(fn, calls=20):
+    """(device ms per launch, device kernels per call, kernel names) of
+    ``fn`` under torch.profiler (CUDA activity, after a warm-up call), as
+    tpinn_torch/profiling.py reads a trace."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):  # a profiler session now and then drops kernel records
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                fn()
+            torch.cuda.synchronize()
+        ks = [e for e in prof.events()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+        if len(ks) >= calls:
+            break
+    if not ks:
+        raise AssertionError("the profiler saw no device kernel")
+    return (sum(e.time_range.elapsed_us() for e in ks) / len(ks) / 1e3,
+            len(ks) / calls, sorted({e.name[:80] for e in ks}))
 
 
 def host_ms(fn, reps=50, warmup=3):
@@ -916,13 +953,186 @@ def main():
                               "loss_last": h.loss_global[-1],
                               "split": split}
 
-    def kernel_row(name, key, route_src, replaces, launches, row):
+    with phase("12 kernels 1-4 at padded widths, d_in 3, ragged and masked"):
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        tiles = {}
+
+        def check_plan(kind, widths, d_in, n_sq, x_extra, n_eff, n_mean):
+            plan = mb._PLANS[(kind, 0, f64, tuple(widths), n_eff, n_mean,
+                              True)]
+            P = mb.plan_points(widths, d_in, n_sq, x_extra, 8, n_eff, sms)
+            acc = mb._tile_fits(widths, d_in, n_sq, x_extra, 8, P, True)
+            smem = 8 * mb.smem_elems(widths, d_in, P, True, n_sq, x_extra, acc)
+            if (plan.P, plan.smem) != (P, smem):
+                raise AssertionError(f"{kind} {widths}: plan (P, smem) "
+                                     f"{(plan.P, plan.smem)} != mirror "
+                                     f"{(P, smem)}")
+            return plan
+
+        for widths, n, n_valid in (((2, 7, 7, 3), 1000, None),
+                                   ((2, 24, 24, 3), 1003, 997),
+                                   ((2, 64, 64, 3), 4099, 4000),
+                                   ((3, 16, 16, 3), 777, None),
+                                   ((3,) + WIDTHS + (3,), 1001, 995)):
+            name = "-".join(map(str, widths)) + f" n={n} n_valid={n_valid}"
+            params, x, physics, norm = problem(widths[0], n, 31, f64, dev,
+                                               widths[1:-1])
+            gbar = torch.tensor(w3, dtype=f64, device=dev)
+            n_mean = n_valid or n
+            dp, mses, loss = mb.ns_residual_bwd(params, x, physics, norm, gbar,
+                                                n_valid, n_mean, with_loss=True)
+            pl, fl = leaves_of(params)
+            loss_p, mses_p = mb.ns_residual_weighted_obj_plain(
+                pl, x, physics, norm, w3, n_valid, n_mean)
+            grads_p = torch.autograd.grad(loss_p, fl)
+            e = max(check_close(f"{name} loss", loss, loss_p.detach(), 1e-11),
+                    check_close(f"{name} mses", mses, mses_p, 1e-11),
+                    *[check_close(f"{name} grad {i}", g, gp, 1e-9, 1e-12)
+                      for i, (g, gp) in enumerate(zip(flat(dp), grads_p))])
+            dp2, mses2, loss2 = mb.ns_residual_bwd(params, x, physics, norm,
+                                                   gbar, n_valid, n_mean,
+                                                   with_loss=True)
+            m2 = mb.ns_residual_fwd(params, x, physics, norm, n_valid, n_mean)
+            if not (torch.equal(loss, loss2) and torch.equal(mses, mses2)
+                    and all(torch.equal(a, b)
+                            for a, b in zip(flat(dp), flat(dp2)))):
+                raise AssertionError(f"NS {name}: repeat not bit-identical")
+            if not torch.equal(m2, mses):
+                raise AssertionError(f"NS {name}: kernel 2's MSEs are not "
+                                     "kernel 1's bit for bit")
+            plan = check_plan("ns_residual", widths, widths[0], 3, 0,
+                              n_valid or n, n_mean)
+            print(f"  NS {name}: P {plan.P}, G {plan.G}, {plan.smem} B; max "
+                  f"abs err {e:.2e}; repeat bit-identical; kernel 2 = "
+                  f"kernel 1 bit for bit")
+            tiles[f"ns {name}"] = {"max_abs_err": e, "P": plan.P, "G": plan.G}
+        for widths, n, n_valid in (((2, 7, 7, 1), 1000, None),
+                                   (POISSON_WIDTHS, 203, 197),
+                                   ((2, 64, 64, 1), 4099, 4000)):
+            name = "-".join(map(str, widths)) + f" n={n} n_valid={n_valid}"
+            params, x, f = poisson_problem(n, 33, f64, dev, widths)
+            gbar = torch.tensor([2.0], dtype=f64, device=dev)
+            dp, mse, loss = mb.poisson_residual_bwd(
+                params, x, f, gbar, 1.5, n_valid, n_valid, with_loss=True)
+            pl, fl = leaves_of(params)
+            loss_p, mse_p = mb.poisson_residual_weighted_obj_plain(
+                pl, x, f, 2.0, 1.5, n_valid, n_valid)
+            grads_p = torch.autograd.grad(loss_p, fl, materialize_grads=True)
+            e = max(check_close(f"{name} loss", loss, loss_p.detach(), 1e-11),
+                    check_close(f"{name} mse", mse, mse_p, 1e-11),
+                    *[check_close(f"{name} grad {i}", g, gp, 1e-9, 1e-12)
+                      for i, (g, gp) in enumerate(zip(flat(dp), grads_p))])
+            dp2, mse2, loss2 = mb.poisson_residual_bwd(
+                params, x, f, gbar, 1.5, n_valid, n_valid, with_loss=True)
+            m4 = mb.poisson_residual_fwd(params, x, f, 1.5, n_valid, n_valid)
+            if not (torch.equal(loss, loss2) and torch.equal(mse, mse2)
+                    and all(torch.equal(a, b)
+                            for a, b in zip(flat(dp), flat(dp2)))):
+                raise AssertionError(f"Poisson {name}: repeat not "
+                                     "bit-identical")
+            if not torch.equal(m4, mse):
+                raise AssertionError(f"Poisson {name}: kernel 4's MSE is not "
+                                     "kernel 3's bit for bit")
+            plan = check_plan("poisson_residual", widths, 2, 1, 1,
+                              n_valid or n, n_valid or n)
+            print(f"  Poisson {name}: P {plan.P}, G {plan.G}, {plan.smem} B; "
+                  f"max abs err {e:.2e}; repeat bit-identical; kernel 4 = "
+                  f"kernel 3 bit for bit")
+            tiles[f"poisson {name}"] = {"max_abs_err": e, "P": plan.P,
+                                        "G": plan.G}
+        record["tiles"] = tiles
+
+    with phase("13 back-to-back calls at two batch sizes (ticket reset)"):
+        gbar3 = torch.tensor(w3, dtype=f64, device=dev)
+        gbar1 = torch.tensor([2.0], dtype=f64, device=dev)
+        ns_in = {n: problem(2, n, 41, f64, dev) for n in (1000, 50_000)}
+        p_in = {n: poisson_problem(n, 43, f64, dev) for n in (200, 50_000)}
+        first = {}
+        for _ in range(3):
+            for n, (params, x, physics, norm) in ns_in.items():
+                got = mb.ns_residual_bwd(params, x, physics, norm, gbar3,
+                                         with_loss=True)
+                ref_ = first.setdefault(("ns", n), got)
+                if not (torch.equal(got[1], ref_[1])
+                        and torch.equal(got[2], ref_[2])):
+                    raise AssertionError(f"kernel 1 at n={n}: a later call "
+                                         "differs")
+            for n, (params, x, f) in p_in.items():
+                got = mb.poisson_residual_bwd(params, x, f, gbar1,
+                                              with_loss=True)
+                ref_ = first.setdefault(("poisson", n), got)
+                if not (torch.equal(got[1], ref_[1])
+                        and torch.equal(got[2], ref_[2])):
+                    raise AssertionError(f"kernel 3 at n={n}: a later call "
+                                         "differs")
+        for n, (params, x, physics, norm) in ns_in.items():
+            check_close(f"kernel 1 n={n} mses", first[("ns", n)][1],
+                        mb.ns_residual_mse_plain(params, x, physics, norm),
+                        1e-11)
+        for n, (params, x, f) in p_in.items():
+            check_close(f"kernel 3 n={n} mse", first[("poisson", n)][1],
+                        mb.poisson_residual_mse_plain(params, x, f), 1e-11)
+        print("  kernels 1 and 3 alternating n = 1000 / 50,000 and 200 / "
+              "50,000, three rounds: every call bit-equal to the first at its "
+              "size, which matches the plain version")
+
+    with phase("14 device time per launch (torch.profiler)"):
+        dev_t = {}
+        gbar3 = torch.tensor(w3, dtype=f64, device=dev)
+        gbar1 = torch.tensor([2.0], dtype=f64, device=dev)
+        for n in (1000, 1_048_576):
+            params, x, physics, norm = problem(2, n, 7, f64, dev)
+            calls = 20 if n <= 10_000 else 3
+            for key, fn in (
+                    ("ns_residual_bwd", lambda: mb.ns_residual_bwd(
+                        params, x, physics, norm, gbar3, with_loss=True)),
+                    ("ns_residual_fwd", lambda: mb.ns_residual_fwd(
+                        params, x, physics, norm))):
+                dev_t[(key, n)] = device_profile(fn, calls)
+            del params, x
+        for n in (200, 1_048_576):
+            params, x, f = poisson_problem(n, 7, f64, dev)
+            calls = 20 if n <= 10_000 else 3
+            for key, fn in (
+                    ("poisson_residual_bwd", lambda: mb.poisson_residual_bwd(
+                        params, x, f, gbar1, with_loss=True)),
+                    ("poisson_residual_fwd", lambda: mb.poisson_residual_fwd(
+                        params, x, f))):
+                dev_t[(key, n)] = device_profile(fn, calls)
+            del params, x, f
+        params, x = bundle_problem((2,) + WIDTHS + (3,), 1000, 7, f64, dev)
+        dev_t[("taylor_bundle", 1000)] = device_profile(
+            lambda: mb.mlp_taylor_bundle(params, x))
+        torch.cuda.empty_cache()
+        call_ms = {("ns_residual_bwd", 1000): times[("ns", "float64", 1000)]["bwd"],
+                   ("ns_residual_fwd", 1000): times[("ns", "float64", 1000)]["fwd"],
+                   ("poisson_residual_bwd", 200): times[("poisson", "float64", 200)]["bwd"],
+                   ("poisson_residual_fwd", 200): times[("poisson", "float64", 200)]["fwd"],
+                   ("ns_residual_bwd", 1_048_576): times[("ns", "float64", 1_048_576)]["bwd"],
+                   ("ns_residual_fwd", 1_048_576): times[("ns", "float64", 1_048_576)]["fwd"],
+                   ("poisson_residual_bwd", 1_048_576): times[("poisson", "float64", 1_048_576)]["bwd"],
+                   ("poisson_residual_fwd", 1_048_576): times[("poisson", "float64", 1_048_576)]["fwd"],
+                   ("taylor_bundle", 1000): times[("bundle", "float64", 1000)]["kernel"]}
+        for (key, n), (d_ms, per_call, names) in dev_t.items():
+            print(f"  {key} n={n}: device {1e3 * d_ms:.2f} us per launch, "
+                  f"{per_call:g} device kernels per call, call "
+                  f"{call_ms[(key, n)]:.4f} ms (events); {names}")
+            if per_call != 1:
+                raise AssertionError(f"{key}: {per_call} device kernels per "
+                                     f"call: {names}")
+        record["device"] = {f"{k} {n}": {"device_ms": d, "per_call": c,
+                                         "call_ms": call_ms[(k, n)]}
+                            for (k, n), (d, c, _) in dev_t.items()}
+
+    def kernel_row(name, key, route_src, replaces, launches, row, n):
+        d_ms, per_call, _ = dev_t[(name, n)]
         return {"name": name, "route": "cuda", "source": route_src,
                 "replaces": replaces, "launches": launches[name],
                 "max_abs_err": errs[name], "ms": row[key],
                 "plain_ms": row[f"plain_{key}"],
                 "bound_ms": row[f"{key}_bound"],
-                "bound_by": row[f"{key}_bound_by"], "library_ms": None}
+                "bound_by": row[f"{key}_bound_by"], "library_ms": None,
+                "device_ms": d_ms, "launches_per_call": per_call}
 
     ns_row = times[("ns", "float64", 1000)]
     p_row = times[("poisson", "float64", 200)]
@@ -931,22 +1141,24 @@ def main():
     ref = "tpinn/pallas/mlp_bundle.py"
     kernels = [
         kernel_row("ns_residual_bwd", "bwd", ns_src, f"{ref}:556", launches,
-                   ns_row),
+                   ns_row, 1000),
         kernel_row("ns_residual_fwd", "fwd", ns_src, f"{ref}:473", launches,
-                   ns_row),
+                   ns_row, 1000),
         kernel_row("poisson_residual_bwd", "bwd", p_src, f"{ref}:1268",
-                   p_launches, p_row),
+                   p_launches, p_row, 200),
         kernel_row("poisson_residual_fwd", "fwd", p_src, f"{ref}:1209",
-                   p_launches, p_row),
+                   p_launches, p_row, 200),
     ]
     b_row = times[("bundle", "float64", 1000)]
+    b_dev, b_per_call, _ = dev_t[("taylor_bundle", 1000)]
     kernels.append({
         "name": "taylor_bundle", "route": "cuda",
         "source": "tpinn_torch/kernels/csrc/taylor_bundle.cu",
         "replaces": f"{ref}:235", "launches": lm_launches["taylor_bundle"],
         "max_abs_err": errs["taylor_bundle"], "ms": b_row["kernel"],
         "plain_ms": b_row["plain"], "bound_ms": b_row["bound"],
-        "bound_by": b_row["bound_by"], "library_ms": None})
+        "bound_by": b_row["bound_by"], "library_ms": None,
+        "device_ms": b_dev, "launches_per_call": b_per_call})
     total = time.perf_counter() - t_all
     print(f"total {total:.1f} s")
     if args.out:

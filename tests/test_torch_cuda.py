@@ -1,6 +1,9 @@
 """The CUDA kernels on the card (skipped where there is none): the NS
-kernels 1-2 and the Poisson kernels 3-4 against their plain versions, and
-a short round of each slice on the card against the CPU.
+kernels 1-2 and the Poisson kernels 3-4 against their plain versions (the
+main widths, widths that the tile layout pads, d_in 3, ragged and masked
+batches), bit-identical repeats, the forward MSEs equal to the backward's,
+one device kernel per call, and a short round of each slice on the card
+against the CPU.
 
 This file imports neither JAX nor tpinn, so it runs on the machine with the
 card, where those are not installed; the repo's conftest files import JAX,
@@ -29,9 +32,9 @@ def cuda():
     return torch.device("cuda")
 
 
-def _case(d_in, n, seed, device):
+def _case(d_in, n, seed, device, widths=None):
     rng = np.random.default_rng(seed)
-    widths = (d_in, 32, 32, 32, 3)
+    widths = widths or (d_in, 32, 32, 32, 3)
     params = []
     for a, b in zip(widths[:-1], widths[1:]):
         lim = np.sqrt(6.0 / (a + b))
@@ -103,9 +106,8 @@ def test_poiseuille_round_on_card_matches_cpu(cuda, tmp_path):
     np.testing.assert_allclose(a, b, rtol=1e-10)
 
 
-def _poisson_case(n, seed, device):
+def _poisson_case(n, seed, device, widths=(2, 20, 20, 20, 1)):
     rng = np.random.default_rng(seed)
-    widths = (2, 20, 20, 20, 1)
     params = []
     for a, b in zip(widths[:-1], widths[1:]):
         lim = np.sqrt(6.0 / (a + b))
@@ -165,6 +167,131 @@ def test_poisson_round_on_card_matches_cpu(cuda, tmp_path):
     a = np.array(gpu.history.loss_global)
     b = np.array(cpu.history.loss_global)
     np.testing.assert_allclose(a, b, rtol=1e-8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("widths,n,n_valid", [
+    ((2, 7, 7, 3), 1000, None),
+    ((2, 24, 24, 3), 1003, 997),
+    ((2, 64, 64, 3), 4099, 4000),
+    ((3, 16, 16, 3), 777, None),
+    ((3, 7, 7, 3), 50, 45),
+])
+def test_ns_kernels_padded_widths_on_card(cuda, widths, n, n_valid):
+    """Widths that the tile layout pads to multiples of 8, d_in 3, ragged
+    last tiles and masked tails: kernel 1 against its plain version, repeats
+    bit-identical, kernel 2's MSEs bit-equal to kernel 1's."""
+    params, x, phys, norm = _case(widths[0], n, 17, cuda, widths)
+    gbar = torch.tensor(W3, dtype=torch.float64, device=cuda)
+    dp, mses, loss = mb.ns_residual_bwd(params, x, phys, norm, gbar, n_valid,
+                                        n_valid, with_loss=True)
+    ref_l, ref_m, ref_g = _plain_grads(params, x, phys, norm, gbar, n_valid,
+                                       n_valid)
+    torch.testing.assert_close(loss, ref_l, rtol=1e-11, atol=0)
+    torch.testing.assert_close(mses, ref_m, rtol=1e-11, atol=0)
+    got = [t for p in dp for t in (p["kernel"], p["bias"])]
+    for a, b in zip(got, ref_g):
+        torch.testing.assert_close(a, b, rtol=1e-9, atol=1e-12)
+    dp2, mses2, loss2 = mb.ns_residual_bwd(params, x, phys, norm, gbar,
+                                           n_valid, n_valid, with_loss=True)
+    assert torch.equal(loss, loss2) and torch.equal(mses, mses2)
+    assert all(torch.equal(a, b) for a, b in
+               zip(got, [t for p in dp2 for t in (p["kernel"], p["bias"])]))
+    assert torch.equal(mb.ns_residual_fwd(params, x, phys, norm, n_valid,
+                                          n_valid), mses)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("widths,n,n_valid", [
+    ((2, 7, 7, 1), 1000, None),
+    ((2, 20, 20, 20, 1), 203, 197),
+    ((2, 64, 64, 1), 4099, 4000),
+])
+def test_poisson_kernels_padded_widths_on_card(cuda, widths, n, n_valid):
+    """Kernels 3 and 4 at padded widths and ragged or masked batches."""
+    params, x, f = _poisson_case(n, 19, cuda, widths)
+    gbar = torch.tensor([2.0], dtype=torch.float64, device=cuda)
+    dp, mse, loss = mb.poisson_residual_bwd(params, x, f, gbar, 1.5, n_valid,
+                                            n_valid, with_loss=True)
+    leaves = [{k: p[k].detach().clone().requires_grad_(True)
+               for k in ("kernel", "bias")} for p in params]
+    ref_m = mb.poisson_residual_mse_plain(leaves, x, f, 1.5, n_valid, n_valid)
+    flat = [t for p in leaves for t in (p["kernel"], p["bias"])]
+    ref_g = torch.autograd.grad(2.0 * ref_m, flat, materialize_grads=True)
+    torch.testing.assert_close(mse, ref_m.detach(), rtol=1e-11, atol=0)
+    got = [t for p in dp for t in (p["kernel"], p["bias"])]
+    for a, b in zip(got, ref_g):
+        torch.testing.assert_close(a, b, rtol=1e-9, atol=1e-12)
+    _, mse2, loss2 = mb.poisson_residual_bwd(params, x, f, gbar, 1.5, n_valid,
+                                             n_valid, with_loss=True)
+    assert torch.equal(mse, mse2) and torch.equal(loss, loss2)
+    assert torch.equal(mb.poisson_residual_fwd(params, x, f, 1.5, n_valid,
+                                               n_valid), mse)
+
+
+@pytest.mark.cuda
+def test_ticket_resets_between_calls_on_card(cuda):
+    """Back-to-back calls at two batch sizes (two grids) on one stream:
+    each launch's last block resets the ticket, so every result is right."""
+    small = _case(2, 1000, 3, cuda)
+    large = _case(2, 50_000, 4, cuda)
+    gbar = torch.tensor(W3, dtype=torch.float64, device=cuda)
+    outs = [mb.ns_residual_bwd(*c, gbar, with_loss=True)
+            for c in (small, large, small, large, small)]
+    for c, (dp, mses, loss) in zip((small, large), outs[:2]):
+        ref_l, ref_m, _ = _plain_grads(*c, gbar, None, None)
+        torch.testing.assert_close(mses, ref_m, rtol=1e-11, atol=0)
+    for a, b in zip(outs, outs[2:]):
+        assert torch.equal(a[1], b[1]) and torch.equal(a[2], b[2])
+
+
+@pytest.mark.cuda
+def test_float32_kernels_on_card(cuda):
+    """The float32 instances (FFMA tiles, no TF32) against float64."""
+    params, x, phys, norm = _case(2, 2000, 5, cuda)
+    gbar = torch.tensor(W3, dtype=torch.float64, device=cuda)
+    dp, mses, _ = mb.ns_residual_bwd(params, x, phys, norm, gbar)
+    p32 = [{k: t.float() for k, t in p.items()} for p in params]
+    dp32, m32, _ = mb.ns_residual_bwd(p32, x.float(), phys, norm, gbar.float())
+    torch.testing.assert_close(m32.double(), mses, rtol=1e-5, atol=0)
+    scale = max(float(t.abs().max()) for p in dp for t in p.values())
+    for a, b in zip(dp32, dp):
+        for k in a:
+            assert float((a[k].double() - b[k]).abs().max()) <= 1e-5 * scale
+
+
+@pytest.mark.cuda
+def test_one_device_kernel_per_call(cuda):
+    """Each wrapper call of kernels 1-4 is one device kernel (no second
+    reduction launch), as torch.profiler sees it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    params, x, phys, norm = _case(2, 1000, 9, cuda)
+    pp, px, pf = _poisson_case(200, 11, cuda)
+    gbar = torch.tensor(W3, dtype=torch.float64, device=cuda)
+    g1 = torch.tensor([2.0], dtype=torch.float64, device=cuda)
+    calls = {
+        "ns_residual_bwd": lambda: mb.ns_residual_bwd(params, x, phys, norm,
+                                                      gbar, with_loss=True),
+        "ns_residual_fwd": lambda: mb.ns_residual_fwd(params, x, phys, norm),
+        "poisson_residual_bwd": lambda: mb.poisson_residual_bwd(
+            pp, px, pf, g1, with_loss=True),
+        "poisson_residual_fwd": lambda: mb.poisson_residual_fwd(pp, px, pf),
+    }
+    for name, fn in calls.items():
+        fn()
+        torch.cuda.synchronize()
+        for _ in range(3):  # a profiler session now and then drops records
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(5):
+                    fn()
+                torch.cuda.synchronize()
+            kernels = [e for e in prof.events()
+                       if e.device_type == torch.autograd.DeviceType.CUDA]
+            if len(kernels) >= 5:
+                break
+        assert len(kernels) == 5, (name, [e.name for e in kernels])
+        assert all("residual_kernel" in e.name for e in kernels), name
 
 
 def _bundle_case(d_in, d_out, n, seed, device, widths=(32, 32, 32)):

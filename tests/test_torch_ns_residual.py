@@ -285,13 +285,33 @@ def test_fits_kernel(widths, d_in, ok):
 
 
 def test_main_path_block_plan_fits_two_blocks_per_sm():
-    """At 2-32-32-32-3 in float64 an 8-point block (256 threads) of the
-    backward kernel needs under 113 KB, so two blocks share an SM."""
+    """The main path's tile plan, through the Python mirror of the kernels'
+    layout (``Layout::build`` and ``plan_points`` in csrc/taylor_mlp.cuh).
+    2-32-32-32-3 pads the head to 8 and strides every stream matrix by
+    width + 4; n = 1000 in float64 takes 8-point tiles (40 stream rows),
+    whose backward block needs 137,856 bytes: one block of 512 threads per
+    SM within the card's 227 KB (two no longer share an SM; the forward
+    block is smaller).  At 1M points float64 takes 16 points, whose block
+    fits only with the accumulators in the partials, and float32 takes 32."""
     w = (2, 32, 32, 32, 3)
-    per_point = mb.smem_elems(w, 2, 2, True) - mb.smem_elems(w, 2, 1, True)
-    assert per_point == mb.smem_elems(w, 2, 8, True) - mb.smem_elems(w, 2, 7, True)
-    assert 8 * mb.smem_elems(w, 2, 8, True) <= 113 * 1024
-    assert mb.smem_elems(w, 2, 8, False) < mb.smem_elems(w, 2, 8, True)
+    lay = mb.tile_layout(w, 2, 8, True)
+    assert lay["wp"] == [2, 32, 32, 32, 8]
+    assert lay["ld"] == [2, 36, 36, 36, 12]
+    assert lay["R"] == 40 and lay["R"] == 8 * (1 + 2 + 2)
+    assert lay["n_acc"] == sum((a + 1) * b for a, b in zip(w[:-1], w[1:])) + 3
+    assert mb.plan_points(w, 2, 3, 0, 8, 1000) == 8
+    assert 8 * lay["total"] == 137_856 <= mb.SMEM_LIMIT
+    assert 8 * lay["total"] > 113 * 1024
+    assert mb.smem_elems(w, 2, 8, False) < lay["total"]
+    assert 8 * mb.smem_elems(w, 2, 16, True) > mb.SMEM_LIMIT
+    assert 8 * mb.smem_elems(w, 2, 16, True, acc_smem=False) <= mb.SMEM_LIMIT
+    assert mb.plan_points(w, 2, 3, 0, 8, 1 << 20) == 16
+    assert mb.plan_points(w, 2, 3, 0, 4, 1 << 20) == 32
+    # float64 DMMA fragments: lanes 0-15 read rows r < 4, columns k < 4 of
+    # a stream matrix; a row stride of width + 4 puts them in 16 distinct
+    # 8-byte banks
+    for ld in lay["ld"][1:]:
+        assert len({(r * ld + k) % 16 for r in range(4) for k in range(4)}) == 16
 
 
 # ---------------------------------------------------------------------------

@@ -277,15 +277,25 @@ def test_fits_poisson_kernel(widths, ok):
 
 
 def test_poisson_block_plan_fits_two_blocks_per_sm():
-    """At 2-20-20-20-1 in float64 an 8-point block of the backward kernel
-    needs under 113 KB, so two blocks share an SM; the n = 200 batch is 25
-    tiles."""
+    """The examples' 2-20-20-20-1 in float64 pads every hidden width to 24
+    and the head to 8; n = 200 takes 8-point tiles (25 tiles, 40 stream
+    rows, the head's two Hessian row blocks at rows 24-39), whose backward
+    block needs 97,504 bytes (two blocks can share an SM; the forward block
+    is smaller); the forcing rides as a third input column."""
     w = (2, 20, 20, 20, 1)
-    assert 8 * mb.smem_elems(w, 2, 8, True, 1, 1) <= 113 * 1024
-    assert mb.smem_elems(w, 2, 8, False, 1, 1) < mb.smem_elems(w, 2, 8, True, 1, 1)
-    # the NS layout is unchanged by the generalisation
+    lay = mb.tile_layout(w, 2, 8, True, 1, 1)
+    assert lay["wp"] == [2, 24, 24, 24, 8] and lay["ld"] == [2, 28, 28, 28, 12]
+    assert lay["R"] == 40
+    assert lay["n_acc"] == sum((a + 1) * b for a, b in zip(w[:-1], w[1:])) + 1
+    assert mb.plan_points(w, 2, 1, 1, 8, 200) == 8
+    assert 8 * lay["total"] == 97_504 <= 113 * 1024
+    assert mb.smem_elems(w, 2, 8, False, 1, 1) < lay["total"]
+    assert mb.smem_elems(w, 2, 8, True, 1, 1) == \
+        mb.smem_elems(w, 2, 8, True, 1, 0) + 2 * 8  # two forcing buffers
+    assert mb.plan_points(w, 2, 1, 1, 8, 1 << 20) == 16
+    # the NS layout is this one with three sums and no forcing column
     assert mb.smem_elems((2, 32, 32, 32, 3), 2, 8, True) == \
-        mb.smem_elems((2, 32, 32, 32, 3), 2, 8, True, 3, 3)
+        mb.smem_elems((2, 32, 32, 32, 3), 2, 8, True, 3, 0)
 
 
 def test_use_fused_routes_the_poisson_net_without_warning():

@@ -23,7 +23,7 @@ from typing import Dict, Optional
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 SOURCES = ("ns_residual.cu", "poisson_residual.cu", "taylor_bundle.cu")
-HEADERS = ("taylor_mlp.cuh",)
+HEADERS = ("taylor_mlp.cuh", "ptx.cuh")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)), ".cache",
                          "tpinn_torch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -37,22 +37,22 @@ _D = ctypes.c_double
 _SIGNATURES = {
     "ns_residual_plan": [_I, _I, _P, _I, _I, _I, _P, _P, _P, _P],
     "ns_residual_bwd_f64": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _D, _D, _I,
-                            _I, _I, _I, _P, _P, _P],
+                            _I, _I, _I, _P, _P, _P, _P],
     "ns_residual_bwd_f32": [_P, _P, _P, _P, _I, _I, _I, _P, _P, _D, _D, _I,
-                            _I, _I, _I, _P, _P, _P],
+                            _I, _I, _I, _P, _P, _P, _P],
     "ns_residual_fwd_f64": [_P, _P, _P, _P, _I, _I, _I, _P, _D, _I, _I, _I,
-                            _P, _P, _P],
+                            _P, _P, _P, _P],
     "ns_residual_fwd_f32": [_P, _P, _P, _P, _I, _I, _I, _P, _D, _I, _I, _I,
-                            _P, _P, _P],
+                            _P, _P, _P, _P],
     "poisson_residual_plan": [_I, _I, _P, _I, _I, _P, _P, _P, _P],
     "poisson_residual_bwd_f64": [_P, _P, _P, _P, _P, _I, _I, _D, _P, _D, _D,
-                                 _I, _I, _I, _I, _P, _P, _P],
+                                 _I, _I, _I, _I, _P, _P, _P, _P],
     "poisson_residual_bwd_f32": [_P, _P, _P, _P, _P, _I, _I, _D, _P, _D, _D,
-                                 _I, _I, _I, _I, _P, _P, _P],
+                                 _I, _I, _I, _I, _P, _P, _P, _P],
     "poisson_residual_fwd_f64": [_P, _P, _P, _P, _P, _I, _I, _D, _D, _I, _I,
-                                 _I, _P, _P, _P],
+                                 _I, _P, _P, _P, _P],
     "poisson_residual_fwd_f32": [_P, _P, _P, _P, _P, _I, _I, _D, _D, _I, _I,
-                                 _I, _P, _P, _P],
+                                 _I, _P, _P, _P, _P],
     "taylor_bundle_plan": [_I, _P, _I, _I, _I, _I, _P, _P, _P],
     "taylor_bundle_f64": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P,
                           _P, _P],

@@ -9,26 +9,33 @@
 //     backward for every dW/db of the MSE cotangent ḡ.  The residual touches
 //     only the two Hessian-diagonal head streams, so the head cotangents are
 //     (0, 0, 0, c, c) with c = ḡ·(2/n_mean)·r·scale: the value and gradient
-//     head streams are structural zeros, their head-layer contractions are
-//     skipped, and the head bias gradient is exactly zero.  Called with the
-//     loss weight as ḡ it is the one-pass training objective (weighted loss,
-//     raw MSE, parameter gradients).
+//     head streams are structural zeros, the head products skip their rows,
+//     and the head bias gradient is exactly zero.  Called with the loss
+//     weight as ḡ it is the one-pass training objective (weighted loss, raw
+//     MSE, parameter gradients).
 //   * poisson_residual_fwd  <- _poisson_kernel (mlp_bundle.py:1209), launched
 //     by _poisson_mse_forward (:1365): the same forward streams, only Σ r².
 //
-// What bounds it on this card.  At the examples' widths 2-20-20-20-1 the
-// backward needs about 2.8e4 floating-point operations per point and reads
-// 24 bytes per point in float64 (x, y, f): it is bound by operations.  The
-// design is ns_residual.cu's (taylor_mlp.cuh): one warp per point, a block
-// of P points walking tiles in a grid-stride loop, the streams and
-// accumulators in shared memory, block partials summed in a fixed order by a
-// second launch, so two calls at the same θ agree bit for bit (L-BFGS-B's
-// line search compares values).  Width 20 leaves 12 lanes of each warp idle.
+// What bounds it on this card: operations.  At the examples' widths
+// 2-20-20-20-1 the backward needs 27,648 floating-point operations per point
+// (poisson_flops_per_point in chip_smoke.py) against 24 bytes of input in
+// float64 (x, y, f), so its bound is the operations over the 67 TFLOP/s of
+// the float64 tensor cores.
+//
+// Design: ns_residual.cu's (taylor_mlp.cuh).  A block walks tiles of P
+// points with every layer's streams of a tile as one stream-major matrix;
+// the layer products run on the float64 tensor cores (DMMA), all five
+// streams of 8 points per warp job, with widths padded from 20 to 24 (the
+// padded neurons cost a sixth of the products, where the one-warp-per-point
+// design idled 12 of 32 lanes); the head products and the head's backward
+// cover only the two Hessian-diagonal row blocks; the block partials are
+// summed in a fixed order by the last block (integer ticket), so two calls
+// at the same θ agree bit for bit (L-BFGS-B's line search compares values).
 //
 // Unlike the TPU kernel, which rides f in a zero-padding feature row of the
-// input stream, f is its own pointer.  Rows at and beyond n_valid are never
-// processed; the cotangents use the static n_mean.  Input columns are
-// (x, y): d_in = 2 only.
+// input stream, f is its own pointer, copied into the tile beside x.  Rows at
+// and beyond n_valid are never read; the cotangents use the static n_mean.
+// Input columns are (x, y): d_in = 2 only.
 
 #include "taylor_mlp.cuh"
 
@@ -41,7 +48,9 @@ struct PoissonArgs {
 };
 
 // The Poisson head: one output u; one squared sum; only the two
-// Hessian-diagonal head streams can carry a cotangent.
+// Hessian-diagonal head streams (rows 3P..5P of the head matrix) can carry
+// a cotangent.  Head stream s of a point is hd[s·ss]; its forcing f is the
+// extra input column.
 template <typename TT>
 struct PoissonHead {
   using T = TT;
@@ -49,21 +58,23 @@ struct PoissonHead {
   static constexpr int S = 1 + D + kNh;
   static constexpr int kDOut = 1;
   static constexpr int kNsq = 1;
+  static constexpr int kExtra = 1;
+  static constexpr int kLiveLo = 1 + D, kLiveHi = S;
   using Args = PoissonArgs<T>;
 
-  __host__ __device__ static constexpr bool head_live(int s) { return s > D; }
+  __device__ static const T* extra(const Args& a) { return a.f; }
 
-  __device__ __forceinline__ static void rows(const T* hd, const Args& a,
-                                              int row, T r[kNsq]) {
-    r[0] = (hd[1 + D] + hd[2 + D] + a.f[row]) * a.scale;
+  __device__ __forceinline__ static void rows(const T* hd, int ss, const T* xr,
+                                              const Args& a, T r[kNsq]) {
+    r[0] = (hd[(1 + D) * ss] + hd[(2 + D) * ss] + xr[D]) * a.scale;
   }
 
   __device__ __forceinline__ static void cotangents(
-      const T*, const Args& a, const T r[kNsq], const T g[kNsq], T two_over_n,
-      int, T ds[S][kNpl]) {
+      const T*, int, const Args& a, const T r[kNsq], const T g[kNsq],
+      T two_over_n, T* dz, int dss) {
     const T c = g[0] * two_over_n * r[0] * a.scale;
-    ds[1 + D][0] = c;
-    ds[2 + D][0] = c;
+    dz[(1 + D) * dss] = c;
+    dz[(2 + D) * dss] = c;
   }
 };
 
@@ -79,17 +90,19 @@ int launch(bool bwd, const void* x, const void* f, const void* const* w,
            const void* const* b, const int* widths, int n_layers, int n_eff,
            double scale, const void* gbar, double two_over_n, double n_mean,
            int with_loss, int P, int G, int smem, void* part, void* out,
-           void* stream) {
+           void* ticket, void* stream) {
   Net net;
   if (!make_net(widths, n_layers, 2, 1, &net)) return int(cudaErrorInvalidValue);
   PoissonArgs<T> args;
   args.f = static_cast<const T*>(f);
   args.scale = T(scale);
   if (bwd)
-    return launch_residual<PoissonHead<T>, true>(x, w, b, net, n_eff, args, gbar, two_over_n,
-                                                 n_mean, with_loss, P, G, smem, part, out, stream);
-  return launch_residual<PoissonHead<T>, false>(x, w, b, net, n_eff, args, gbar, two_over_n,
-                                                n_mean, with_loss, P, G, smem, part, out, stream);
+    return launch_residual<PoissonHead<T>, true>(x, w, b, net, n_eff, args, gbar,
+                                                 two_over_n, n_mean, with_loss, P, G,
+                                                 smem, part, out, ticket, stream);
+  return launch_residual<PoissonHead<T>, false>(x, w, b, net, n_eff, args, gbar,
+                                                two_over_n, n_mean, with_loss, P, G,
+                                                smem, part, out, ticket, stream);
 }
 
 }  // namespace
@@ -102,47 +115,53 @@ int poisson_residual_plan(int bwd, int f64, const int* widths, int n_layers,
                           int* n_acc_out) {
   Net net;
   if (!make_net(widths, n_layers, 2, 1, &net)) return -1;
-  return plan_blocks(net, 2, 1, 1, bwd != 0, f64 ? 8 : 4,
-                     bwd_kernel(f64 != 0), n_eff, P_out, G_out,
-                     smem_out, n_acc_out);
+  return plan_blocks(net, 2, 1, 1, bwd != 0, f64 ? 8 : 4, bwd_kernel(f64 != 0),
+                     n_eff, P_out, G_out, smem_out, n_acc_out);
 }
 
 // One-pass backward: out = [dW_0, db_0, dW_1, db_1, ..., mse] (+ loss =
-// gbar[0] · mse when with_loss).  part holds G * n_acc elements.  Returns
-// cudaGetLastError() after the two launches.
+// gbar[0] · mse when with_loss).  part holds G * n_acc elements; ticket is
+// a device unsigned, zero between launches.  Returns cudaGetLastError()
+// after the launch.
 int poisson_residual_bwd_f64(const void* x, const void* f, const void* const* w,
                              const void* const* b, const int* widths, int n_layers,
                              int n_eff, double scale, const void* gbar,
                              double two_over_n, double n_mean, int with_loss, int P,
-                             int G, int smem, void* part, void* out, void* stream) {
+                             int G, int smem, void* part, void* out, void* ticket,
+                             void* stream) {
   return launch<double>(true, x, f, w, b, widths, n_layers, n_eff, scale, gbar,
-                        two_over_n, n_mean, with_loss, P, G, smem, part, out, stream);
+                        two_over_n, n_mean, with_loss, P, G, smem, part, out, ticket,
+                        stream);
 }
 
 int poisson_residual_bwd_f32(const void* x, const void* f, const void* const* w,
                              const void* const* b, const int* widths, int n_layers,
                              int n_eff, double scale, const void* gbar,
                              double two_over_n, double n_mean, int with_loss, int P,
-                             int G, int smem, void* part, void* out, void* stream) {
+                             int G, int smem, void* part, void* out, void* ticket,
+                             void* stream) {
   return launch<float>(true, x, f, w, b, widths, n_layers, n_eff, scale, gbar,
-                       two_over_n, n_mean, with_loss, P, G, smem, part, out, stream);
+                       two_over_n, n_mean, with_loss, P, G, smem, part, out, ticket,
+                       stream);
 }
 
 // Forward: out = [mse].
 int poisson_residual_fwd_f64(const void* x, const void* f, const void* const* w,
                              const void* const* b, const int* widths, int n_layers,
                              int n_eff, double scale, double n_mean, int P, int G,
-                             int smem, void* part, void* out, void* stream) {
+                             int smem, void* part, void* out, void* ticket,
+                             void* stream) {
   return launch<double>(false, x, f, w, b, widths, n_layers, n_eff, scale, nullptr,
-                        0.0, n_mean, 0, P, G, smem, part, out, stream);
+                        0.0, n_mean, 0, P, G, smem, part, out, ticket, stream);
 }
 
 int poisson_residual_fwd_f32(const void* x, const void* f, const void* const* w,
                              const void* const* b, const int* widths, int n_layers,
                              int n_eff, double scale, double n_mean, int P, int G,
-                             int smem, void* part, void* out, void* stream) {
+                             int smem, void* part, void* out, void* ticket,
+                             void* stream) {
   return launch<float>(false, x, f, w, b, widths, n_layers, n_eff, scale, nullptr,
-                       0.0, n_mean, 0, P, G, smem, part, out, stream);
+                       0.0, n_mean, 0, P, G, smem, part, out, ticket, stream);
 }
 
 }  // extern "C"

@@ -4,10 +4,10 @@ Two CUDA kernels (csrc/ns_residual.cu) replace the NS-residual Pallas kernels
 of the JAX package:
 
 * ``ns_residual_bwd`` — the one-pass backward: Taylor streams, residuals,
-  cotangents, every dW/db and the three MSEs in one launch (plus a fixed-order
-  reduction over blocks).  ``ns_residual_weighted_obj`` calls it with the loss
-  weights as cotangents: weighted loss, log MSEs and parameter gradients from
-  one pass.
+  cotangents, every dW/db and the three MSEs in one launch (the last block
+  sums the block partials in a fixed order).  ``ns_residual_weighted_obj``
+  calls it with the loss weights as cotangents: weighted loss, log MSEs and
+  parameter gradients from one pass.
 * ``ns_residual_fwd`` — the forward: the three MSEs only.  It is the forward
   of ``ns_residual_mse``, whose backward is ``ns_residual_bwd``.
 
@@ -31,7 +31,11 @@ Beside each public function sits its plain PyTorch version (``*_plain``),
 built on :func:`tpinn_torch.operators.mlp_taylor_batched` and autograd.  A
 tensor on the CPU takes the plain version; a CUDA tensor launches the kernel
 or raises.  ``LAUNCHES`` counts the launches of each kernel (one per wrapper
-call that launches it).
+call that launches it).  A call of kernels 1-4 checks its tensors, looks up
+the plan of its shape (computed once: tile, grid, shared bytes), makes one
+allocation for the block partials and the outputs, and launches once;
+``tile_layout`` and ``plan_points`` mirror the plan on the host, for the
+fit checks and the tests.
 """
 
 from __future__ import annotations
@@ -44,15 +48,20 @@ import torch
 from tpinn_torch.operators import mlp_taylor_batched
 
 MAX_LAYERS = 8  # Dense layers, head included
-MAX_WIDTH = 64  # any layer's output width (two neurons per lane)
+MAX_WIDTH = 64  # any layer's output width
 SMEM_LIMIT = 227 * 1024  # bytes of shared memory a block may use
 D_OUT = 3
 N_H = 2
+SKEW = 4  # row stride of a stream matrix: padded width + SKEW
+TILE_POINTS = (32, 16, 8, 4, 2, 1)  # candidate points per tile
+SMS = 132  # streaming multiprocessors of an H100 SXM
+ITEMSIZE = {torch.float32: 4, torch.float64: 8}
 
 LAUNCHES: Dict[str, int] = {"ns_residual_bwd": 0, "ns_residual_fwd": 0,
                              "poisson_residual_bwd": 0,
                              "poisson_residual_fwd": 0, "taylor_bundle": 0}
-_PLANS: Dict[tuple, Tuple[int, int, int, int]] = {}
+_PLANS: Dict[tuple, object] = {}
+_TICKETS: Dict[tuple, torch.Tensor] = {}
 
 
 def reset_launch_counts() -> None:
@@ -97,75 +106,97 @@ def _check_layout(params, x, physics) -> List[int]:
     return widths
 
 
-def smem_elems(widths: Sequence[int], d_in: int, points: int,
-               bwd: bool, d_out: int = D_OUT, n_sq: int = 3) -> int:
-    """Shared-memory elements of one block (mirrors ``Layout::build`` in
-    csrc/taylor_mlp.cuh): weights with padded rows, the accumulators, and
-    ``points`` per-point regions; ``d_out`` is the head width and ``n_sq``
-    the number of squared-residual sums (3 and 3 for Navier–Stokes, 1 and 1
-    for Poisson)."""
+def _pad8(v: int) -> int:
+    return (v + 7) & ~7
+
+
+def _align4(v: int) -> int:
+    return (v + 3) & ~3
+
+
+def tile_layout(widths: Sequence[int], d_in: int, points: int, bwd: bool,
+                n_sq: int = 3, x_extra: int = 0, acc_smem: bool = True) -> dict:
+    """One block's shared-memory layout in elements (mirrors ``Layout::build``
+    in csrc/taylor_mlp.cuh): ``wp`` the padded widths (d_in, then each
+    output width rounded up to 8), ``ld`` the row strides (wp + SKEW),
+    ``R`` the stream rows of a tile (S·points rounded up to 8), ``total``
+    the elements and ``n_acc`` the accumulators (dW/db in the output's
+    order, then the squared sums), held in shared memory when ``acc_smem``.
+    ``n_sq`` is the number of squared-residual sums (3 for Navier–Stokes,
+    1 for Poisson) and ``x_extra`` the extra input columns per point (the
+    Poisson forcing)."""
     S = 1 + d_in + N_H
     L = len(widths) - 1
-    total = sum(widths[l] * (widths[l + 1] + 1) + widths[l + 1]
-                for l in range(L))
-    maxw = max(widths[1:])
-    n_acc = (sum((widths[l] + 1) * widths[l + 1] for l in range(L))
-             if bwd else 0) + n_sq
-    pt = d_in + sum(2 * S * widths[l + 1] for l in range(L - 1)) + S * d_out
-    pt += (S * maxw if bwd else 0) + n_sq
-    pt += pt & 1
-    return total + n_acc + points * pt
+    R = _pad8(S * points)
+    wp = [d_in] + [_pad8(int(w)) for w in widths[1:]]
+    ld = [d_in] + [w + SKEW for w in wp[1:]]
+    off = sum(wp[l] * ld[l + 1] + wp[l + 1] for l in range(L))
+    n_acc = n_sq
+    if bwd:
+        n_acc += sum((widths[l] + 1) * widths[l + 1] for l in range(L))
+    if acc_smem:
+        off += _align4(n_acc)
+    off += 2 * _align4(points * (d_in + x_extra))
+    off += sum(2 * R * ld[l + 1] for l in range(L - 1)) + R * ld[L]
+    if bwd:
+        off += 2 * R * max(ld[1:])
+    off += _align4(points * n_sq)
+    return {"P": points, "R": R, "wp": wp, "ld": ld, "total": off,
+            "n_acc": n_acc}
+
+
+def smem_elems(widths: Sequence[int], d_in: int, points: int, bwd: bool,
+               n_sq: int = 3, x_extra: int = 0, acc_smem: bool = True) -> int:
+    """Shared-memory elements of one block (``tile_layout``'s total)."""
+    return tile_layout(widths, d_in, points, bwd, n_sq, x_extra,
+                       acc_smem)["total"]
+
+
+def _tile_fits(widths, d_in, n_sq, x_extra, itemsize, points,
+               acc_smem) -> bool:
+    return smem_elems(widths, d_in, points, True, n_sq, x_extra,
+                      acc_smem) * itemsize <= SMEM_LIMIT
+
+
+def plan_points(widths: Sequence[int], d_in: int, n_sq: int, x_extra: int,
+                itemsize: int, n_eff: int, sms: int = SMS) -> int:
+    """Points per tile for one call shape (mirrors ``plan_points`` in
+    csrc/taylor_mlp.cuh): among the candidates whose backward block fits
+    SMEM_LIMIT (with the accumulators in the partials if need be), the
+    largest whose tile count reaches ``sms`` or that is at most 8; 0 when
+    none fits.  The accumulators stay in shared memory when
+    ``_tile_fits(..., P, True)``."""
+    for P in TILE_POINTS:
+        if _tile_fits(widths, d_in, n_sq, x_extra, itemsize, P, False) and \
+                (P <= 8 or -(-n_eff // P) >= sms):
+            return P
+    return 0
 
 
 def _fits(widths: Sequence[int], d_in: int, d_out: int, n_sq: int,
-          dtype: torch.dtype) -> bool:
+          x_extra: int, dtype: torch.dtype) -> bool:
     widths = [int(w) for w in widths]
     L = len(widths) - 1
     if widths[0] != d_in or widths[-1] != d_out:
         return False
     if not 1 <= L <= MAX_LAYERS or max(widths[1:]) > MAX_WIDTH:
         return False
-    itemsize = torch.empty((), dtype=dtype).element_size()
-    return (smem_elems(widths, d_in, 1, True, d_out, n_sq) * itemsize
-            <= SMEM_LIMIT)
+    return _tile_fits(widths, d_in, n_sq, x_extra, ITEMSIZE[dtype], 1, False)
 
 
 def fits_kernel(widths: Sequence[int], d_in: int,
                 dtype: torch.dtype = torch.float64) -> bool:
     """True when the CUDA NS kernels take this MLP: d_in 2 or 3, a (u, v, p)
-    head, at most MAX_LAYERS layers of at most MAX_WIDTH, and one point's
-    backward working set in one block's shared memory."""
-    return d_in in (2, 3) and _fits(widths, d_in, D_OUT, 3, dtype)
+    head, at most MAX_LAYERS layers of at most MAX_WIDTH, and a one-point
+    tile's backward block within SMEM_LIMIT bytes of shared memory."""
+    return d_in in (2, 3) and _fits(widths, d_in, D_OUT, 3, 0, dtype)
 
 
 def fits_poisson_kernel(widths: Sequence[int],
                         dtype: torch.dtype = torch.float64) -> bool:
     """True when the CUDA Poisson kernels take this MLP: inputs (x, y), a
     scalar head, and the same layer and shared-memory limits."""
-    return _fits(widths, 2, 1, 1, dtype)
-
-
-def _check_kernel_args(params, x, kind: str = "ns_residual") -> None:
-    if x.dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"{kind} kernels take float32/float64, not {x.dtype}")
-    if x.dim() != 2 or not x.is_contiguous():
-        raise ValueError(f"{kind} kernels take a contiguous (n, d_in) batch")
-    if x.shape[0] >= 2 ** 31:
-        raise ValueError(f"batch of {x.shape[0]} points exceeds the int32 range")
-    widths = _widths(params)
-    fits = (fits_poisson_kernel(widths, x.dtype) if kind == "poisson_residual"
-            else fits_kernel(widths, int(x.shape[1]), x.dtype))
-    if not fits:
-        raise ValueError(
-            f"{kind} kernels do not take widths {widths}: at most "
-            f"{MAX_LAYERS} layers of at most {MAX_WIDTH}, and one point's "
-            f"working set within {SMEM_LIMIT} bytes of shared memory")
-    for p in params:
-        for t in (p["kernel"], p["bias"]):
-            if t.device != x.device or t.dtype != x.dtype:
-                raise ValueError("params must share the batch's device and dtype")
-            if not t.is_contiguous():
-                raise ValueError("params must be contiguous")
+    return _fits(widths, 2, 1, 1, 1, dtype)
 
 
 def _flat(params) -> List[torch.Tensor]:
@@ -182,75 +213,164 @@ def _unflat(flat) -> List[dict]:
 # ---------------------------------------------------------------------------
 
 
-def _plan(lib, bwd: bool, x: torch.Tensor, widths, n_eff: int,
-          kind: str = "ns_residual"):
-    key = (kind, x.device.index, bwd, x.dtype, tuple(widths), n_eff)
+class _Plan:
+    """What one call shape needs beyond its tensors, computed once: the
+    entry point, points per tile, grid, shared bytes, accumulator count, the
+    widths array, the mean's constants, and how the call's one buffer
+    splits: the partials, each dW/db (``shapes``: dW's), the MSEs, the
+    loss."""
+
+    __slots__ = ("fn", "P", "G", "smem", "n_acc", "L", "w_arr", "n_mean",
+                 "two_over_n", "sizes", "shapes")
+
+
+def _plan(kind: str, bwd: bool, x: torch.Tensor, widths: List[int],
+          n_eff: int, n_mean: int) -> _Plan:
+    """The cached plan of a call shape; raises for a dtype or net that the
+    kernels do not take (checked once per shape)."""
+    key = (kind, x.device.index, x.dtype, tuple(widths), n_eff, n_mean, bwd)
     plan = _PLANS.get(key)
-    if plan is None:
-        L = len(widths) - 1
-        w_arr = (ctypes.c_int * (L + 1))(*widths)
-        outs = [ctypes.c_int(0) for _ in range(4)]
-        head = (int(bwd), int(x.dtype == torch.float64),
-                ctypes.addressof(w_arr), L)
-        if kind == "poisson_residual":
-            rc = lib.poisson_residual_plan(
-                *head, n_eff, *[ctypes.addressof(o) for o in outs])
-        else:
-            rc = lib.ns_residual_plan(
-                *head, int(x.shape[1]), n_eff,
-                *[ctypes.addressof(o) for o in outs])
-        if rc != 0:
-            raise RuntimeError(f"{kind}_plan failed with code {rc}")
-        plan = tuple(o.value for o in outs)  # (P, G, smem bytes, n_acc)
-        _PLANS[key] = plan
+    if plan is not None:
+        return plan
+    from tpinn_torch.kernels import build
+
+    if x.dtype not in ITEMSIZE:
+        raise TypeError(f"{kind} kernels take float32/float64, not {x.dtype}")
+    poisson = kind == "poisson_residual"
+    d_in = int(x.shape[1])
+    if not (fits_poisson_kernel(widths, x.dtype) if poisson
+            else fits_kernel(widths, d_in, x.dtype)):
+        raise ValueError(
+            f"{kind} kernels do not take widths {widths}: at most "
+            f"{MAX_LAYERS} layers of at most {MAX_WIDTH}, and a one-point "
+            f"tile within {SMEM_LIMIT} bytes of shared memory")
+    lib = build.library(f"{kind}.cu")
+    L = len(widths) - 1
+    plan = _Plan()
+    plan.L = L
+    plan.w_arr = (ctypes.c_int * (L + 1))(*widths)
+    plan.n_mean = float(n_mean)
+    plan.two_over_n = 2.0 / n_mean
+    f64 = x.dtype == torch.float64
+    outs = [ctypes.c_int(0) for _ in range(4)]
+    head = (int(bwd), int(f64), ctypes.addressof(plan.w_arr), L)
+    shape = (n_eff,) if poisson else (d_in, n_eff)
+    with torch.cuda.device(x.device):
+        rc = getattr(lib, f"{kind}_plan")(
+            *head, *shape, *[ctypes.addressof(o) for o in outs])
+    if rc != 0:
+        raise RuntimeError(f"{kind}_plan failed with code {rc}")
+    plan.P, plan.G, plan.smem, plan.n_acc = (o.value for o in outs)
+    plan.fn = getattr(lib, f"{kind}_{'bwd' if bwd else 'fwd'}_"
+                           f"{'f64' if f64 else 'f32'}")
+    plan.shapes = [(a, b) for a, b in zip(widths[:-1], widths[1:])] \
+        if bwd else []
+    plan.sizes = [plan.G * plan.n_acc] + [
+        k for a, b in plan.shapes for k in (a * b, b)] + [
+        plan.n_acc - sum(a * b + b for a, b in plan.shapes), 1]
+    _PLANS[key] = plan
     return plan
 
 
-def _launch(bwd: bool, params, x, physics, norm, gbar, n_valid, n_mean,
-            with_loss: bool) -> torch.Tensor:
-    from tpinn_torch.kernels import build
+def _check_tensors(params, x: torch.Tensor, kind: str) -> None:
+    """Per call: the batch is a contiguous (n, d_in) tensor within the int32
+    range, and every parameter is contiguous on its device and dtype."""
+    if x.dim() != 2 or not x.is_contiguous():
+        raise ValueError(f"{kind} kernels take a contiguous (n, d_in) batch")
+    if x.shape[0] >= 2 ** 31:
+        raise ValueError(f"batch of {x.shape[0]} points exceeds the int32 range")
+    dev, dt = x.device, x.dtype
+    for p in params:
+        for t in (p["kernel"], p["bias"]):
+            if t.device != dev or t.dtype != dt:
+                raise ValueError("params must share the batch's device and dtype")
+            if not t.is_contiguous():
+                raise ValueError("params must be contiguous")
 
+
+def _check_cotangent(gbar, x: torch.Tensor, n: int) -> None:
+    if gbar.device != x.device or gbar.dtype != x.dtype or \
+            gbar.shape != (n,) or not gbar.is_contiguous():
+        raise ValueError(f"gbar must be a contiguous ({n},) tensor on the "
+                         "batch's device and dtype")
+
+
+def _ticket(x: torch.Tensor, stream: int) -> torch.Tensor:
+    """The launches' ticket on one stream: an unsigned that each launch's
+    last block resets to zero."""
+    key = (x.device.index, stream)
+    t = _TICKETS.get(key)
+    if t is None:
+        t = _TICKETS[key] = torch.zeros(1, dtype=torch.int32, device=x.device)
+    return t
+
+
+# PyTorch's current stream of a device as a raw handle; the public
+# torch.cuda.current_stream() builds a Stream object per call, a third of
+# a small call's host time
+_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
+def _stream(index: int) -> int:
+    if _RAW_STREAM is not None:
+        return _RAW_STREAM(index)
+    return torch.cuda.current_stream(index).cuda_stream
+
+
+def _call(x: torch.Tensor, fn, *args) -> int:
+    """Call a launcher on the batch's device with PyTorch's current stream
+    appended."""
+    index = x.device.index
+    stream = _stream(index)
+    if index == torch.cuda.current_device():
+        return fn(*args, _ticket(x, stream).data_ptr(), stream)
+    with torch.cuda.device(index):
+        return fn(*args, _ticket(x, stream).data_ptr(), stream)
+
+
+def _launch(bwd: bool, params, x, physics, norm, gbar, n_valid, n_mean,
+            with_loss: bool):
+    """Kernel 1 (bwd) or 2 on a CUDA batch: (dparams, mses, loss slot) as
+    views of one buffer; the one place where a kernel call checks the
+    layout."""
     if x.device.type != "cuda":
         raise ValueError("ns_residual kernels run on CUDA tensors only")
-    _check_layout(params, x, physics)
-    _check_kernel_args(params, x)
-    lib = build.library("ns_residual.cu")
-    widths = _widths(params)
-    L = len(widths) - 1
+    widths = _check_layout(params, x, physics)
     n = int(x.shape[0])
-    n_eff = min(n, n if n_valid is None else int(n_valid))
-    n_mean = n if n_mean is None else int(n_mean)
-    with torch.cuda.device(x.device):
-        P, G, smem, n_acc = _plan(lib, bwd, x, widths, n_eff)
-        part = torch.empty(G * n_acc, dtype=x.dtype, device=x.device)
-        out = torch.empty(n_acc + 1, dtype=x.dtype, device=x.device)
-        w_ptrs = (ctypes.c_void_p * L)(*[p["kernel"].data_ptr() for p in params])
-        b_ptrs = (ctypes.c_void_p * L)(*[p["bias"].data_ptr() for p in params])
-        w_arr = (ctypes.c_int * (L + 1))(*widths)
-        phys = (ctypes.c_double * 7)(*_phys_items(physics, norm))
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        f64 = x.dtype == torch.float64
-        common = (x.data_ptr(), ctypes.addressof(w_ptrs),
-                  ctypes.addressof(b_ptrs), ctypes.addressof(w_arr), L,
-                  int(x.shape[1]), n_eff, ctypes.addressof(phys))
-        if bwd:
-            if gbar.device != x.device or gbar.dtype != x.dtype or \
-                    gbar.shape != (3,) or not gbar.is_contiguous():
-                raise ValueError("gbar must be a contiguous (3,) tensor on "
-                                 "the batch's device and dtype")
-            fn = lib.ns_residual_bwd_f64 if f64 else lib.ns_residual_bwd_f32
-            rc = fn(*common, gbar.data_ptr(), 2.0 / n_mean, float(n_mean),
-                    int(with_loss), P, G, smem, part.data_ptr(),
-                    out.data_ptr(), stream)
-        else:
-            fn = lib.ns_residual_fwd_f64 if f64 else lib.ns_residual_fwd_f32
-            rc = fn(*common, float(n_mean), P, G, smem, part.data_ptr(),
-                    out.data_ptr(), stream)
+    n_eff = n if n_valid is None else min(n, int(n_valid))
+    plan = _plan("ns_residual", bwd, x, widths, n_eff,
+                 n if n_mean is None else int(n_mean))
+    _check_tensors(params, x, "ns_residual")
+    G, n_acc, L = plan.G, plan.n_acc, plan.L
+    buf = torch.empty(G * n_acc + n_acc + 1, dtype=x.dtype, device=x.device)
+    w_ptrs = (ctypes.c_void_p * L)(*[p["kernel"].data_ptr() for p in params])
+    b_ptrs = (ctypes.c_void_p * L)(*[p["bias"].data_ptr() for p in params])
+    phys = (ctypes.c_double * 7)(*_phys_items(physics, norm))
+    common = (x.data_ptr(), w_ptrs, b_ptrs, plan.w_arr, L, int(x.shape[1]),
+              n_eff, phys)
+    tail = (plan.P, G, plan.smem, buf.data_ptr(),
+            buf.data_ptr() + G * n_acc * buf.element_size())
+    if bwd:
+        _check_cotangent(gbar, x, 3)
+        rc = _call(x, plan.fn, *common, gbar.data_ptr(), plan.two_over_n,
+                   plan.n_mean, int(with_loss), *tail)
+    else:
+        rc = _call(x, plan.fn, *common, plan.n_mean, *tail)
     if rc != 0:
         raise RuntimeError(f"ns_residual_{'bwd' if bwd else 'fwd'} launch "
                            f"failed: cudaError {rc}")
     LAUNCHES["ns_residual_bwd" if bwd else "ns_residual_fwd"] += 1
-    return out
+    return _unpack(plan, buf)
+
+
+def _unpack(plan: _Plan, buf: torch.Tensor):
+    """(dparams, mses, loss) as views of a call's buffer, by one split:
+    dparams per layer {kernel, bias} (empty for a forward call), the
+    squared-sum MSEs and the (1,) loss slot."""
+    parts = buf.split(plan.sizes)
+    dparams = [{"kernel": parts[1 + 2 * i].view(shape), "bias": parts[2 + 2 * i]}
+               for i, shape in enumerate(plan.shapes)]
+    return dparams, parts[-2], parts[-1]
 
 
 def ns_residual_bwd(params, x, physics, norm, gbar: torch.Tensor,
@@ -259,32 +379,16 @@ def ns_residual_bwd(params, x, physics, norm, gbar: torch.Tensor,
     """Kernel 1 on a CUDA batch: (dparams, mses, loss) where dparams are the
     parameter cotangents of the (3,) MSE cotangents ``gbar`` and loss is
     ``gbar · mses`` when ``with_loss`` (else None)."""
-    out = _launch(True, params, x, physics, norm, gbar, n_valid, n_mean,
-                  with_loss)
-    dparams, off = _unpack_dparams(params, out)
-    return dparams, out[off:off + 3], (out[off + 3] if with_loss else None)
-
-
-def _unpack_dparams(params, out: torch.Tensor):
-    """Views of a backward kernel's output as per-layer dW/db, and the
-    offset of the squared-sum slots after them."""
-    dparams, off = [], 0
-    for p in params:
-        w_in, w_out = p["kernel"].shape
-        dparams.append({
-            "kernel": out[off:off + w_in * w_out].view(w_in, w_out),
-            "bias": out[off + w_in * w_out:off + (w_in + 1) * w_out],
-        })
-        off += (w_in + 1) * w_out
-    return dparams, off
+    dparams, mses, loss = _launch(True, params, x, physics, norm, gbar,
+                                  n_valid, n_mean, with_loss)
+    return dparams, mses, (loss.view(()) if with_loss else None)
 
 
 def ns_residual_fwd(params, x, physics, norm, n_valid: Optional[int] = None,
                     n_mean: Optional[int] = None) -> torch.Tensor:
     """Kernel 2 on a CUDA batch: the (3,) MSEs (mass, mom-u, mom-v)."""
-    out = _launch(False, params, x, physics, norm, None, n_valid, n_mean,
-                  False)
-    return out[:3]
+    return _launch(False, params, x, physics, norm, None, n_valid, n_mean,
+                   False)[1]
 
 
 class _Spec:
@@ -357,7 +461,6 @@ def ns_residual_weighted_obj(params, x, physics, norm, weights,
     if not _route(x):
         return ns_residual_weighted_obj_plain(params, x, physics, norm,
                                               weights, n_valid, n_mean)
-    _check_layout(params, x, physics)
     if not torch.is_tensor(weights):
         weights = torch.tensor([float(w) for w in weights], dtype=x.dtype,
                                device=x.device)
@@ -371,7 +474,6 @@ def ns_residual_mse(params, x, physics, norm, n_valid: Optional[int] = None,
     forward, kernel 1 backward on CUDA).  No gradient w.r.t. ``x``."""
     if not _route(x):
         return ns_residual_mse_plain(params, x, physics, norm, n_valid, n_mean)
-    _check_layout(params, x, physics)
     spec = _Spec(physics, norm, n_valid, n_mean)
     return _ResidualMSE.apply(x, spec, *_flat(params))
 
@@ -432,56 +534,41 @@ def _check_poisson_layout(params, x, f) -> List[int]:
 
 
 def _poisson_launch(bwd: bool, params, x, f, normalization, gbar, n_valid,
-                    n_mean, with_loss: bool) -> torch.Tensor:
-    from tpinn_torch.kernels import build
-
+                    n_mean, with_loss: bool):
+    """Kernel 3 (bwd) or 4 on a CUDA batch: (dparams, (1,) mse, loss slot)
+    as views of one buffer; the one place where a kernel call checks the
+    layout."""
     if x.device.type != "cuda":
         raise ValueError("poisson_residual kernels run on CUDA tensors only")
-    _check_poisson_layout(params, x, f)
-    _check_kernel_args(params, x, "poisson_residual")
+    widths = _check_poisson_layout(params, x, f)
+    n = int(x.shape[0])
+    n_eff = n if n_valid is None else min(n, int(n_valid))
+    plan = _plan("poisson_residual", bwd, x, widths, n_eff,
+                 n if n_mean is None else int(n_mean))
+    _check_tensors(params, x, "poisson_residual")
     if f.device != x.device or f.dtype != x.dtype or f.dim() != 1 or \
             not f.is_contiguous():
         raise ValueError("f must be a contiguous (n,) tensor on the batch's "
                          "device and dtype")
-    lib = build.library("poisson_residual.cu")
-    widths = _widths(params)
-    L = len(widths) - 1
-    n = int(x.shape[0])
-    n_eff = min(n, n if n_valid is None else int(n_valid))
-    n_mean = n if n_mean is None else int(n_mean)
-    with torch.cuda.device(x.device):
-        P, G, smem, n_acc = _plan(lib, bwd, x, widths, n_eff,
-                                  "poisson_residual")
-        part = torch.empty(G * n_acc, dtype=x.dtype, device=x.device)
-        out = torch.empty(n_acc + 1, dtype=x.dtype, device=x.device)
-        w_ptrs = (ctypes.c_void_p * L)(*[p["kernel"].data_ptr() for p in params])
-        b_ptrs = (ctypes.c_void_p * L)(*[p["bias"].data_ptr() for p in params])
-        w_arr = (ctypes.c_int * (L + 1))(*widths)
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        f64 = x.dtype == torch.float64
-        common = (x.data_ptr(), f.data_ptr(), ctypes.addressof(w_ptrs),
-                  ctypes.addressof(b_ptrs), ctypes.addressof(w_arr), L, n_eff,
-                  1.0 / float(normalization))
-        if bwd:
-            if gbar.device != x.device or gbar.dtype != x.dtype or \
-                    gbar.shape != (1,) or not gbar.is_contiguous():
-                raise ValueError("gbar must be a contiguous (1,) tensor on "
-                                 "the batch's device and dtype")
-            fn = (lib.poisson_residual_bwd_f64 if f64
-                  else lib.poisson_residual_bwd_f32)
-            rc = fn(*common, gbar.data_ptr(), 2.0 / n_mean, float(n_mean),
-                    int(with_loss), P, G, smem, part.data_ptr(),
-                    out.data_ptr(), stream)
-        else:
-            fn = (lib.poisson_residual_fwd_f64 if f64
-                  else lib.poisson_residual_fwd_f32)
-            rc = fn(*common, float(n_mean), P, G, smem, part.data_ptr(),
-                    out.data_ptr(), stream)
+    G, n_acc, L = plan.G, plan.n_acc, plan.L
+    buf = torch.empty(G * n_acc + n_acc + 1, dtype=x.dtype, device=x.device)
+    w_ptrs = (ctypes.c_void_p * L)(*[p["kernel"].data_ptr() for p in params])
+    b_ptrs = (ctypes.c_void_p * L)(*[p["bias"].data_ptr() for p in params])
+    common = (x.data_ptr(), f.data_ptr(), w_ptrs, b_ptrs, plan.w_arr, L,
+              n_eff, 1.0 / float(normalization))
+    tail = (plan.P, G, plan.smem, buf.data_ptr(),
+            buf.data_ptr() + G * n_acc * buf.element_size())
+    if bwd:
+        _check_cotangent(gbar, x, 1)
+        rc = _call(x, plan.fn, *common, gbar.data_ptr(), plan.two_over_n,
+                   plan.n_mean, int(with_loss), *tail)
+    else:
+        rc = _call(x, plan.fn, *common, plan.n_mean, *tail)
     if rc != 0:
         raise RuntimeError(f"poisson_residual_{'bwd' if bwd else 'fwd'} "
                            f"launch failed: cudaError {rc}")
     LAUNCHES["poisson_residual_bwd" if bwd else "poisson_residual_fwd"] += 1
-    return out
+    return _unpack(plan, buf)
 
 
 def poisson_residual_bwd(params, x, f, gbar: torch.Tensor,
@@ -493,19 +580,17 @@ def poisson_residual_bwd(params, x, f, gbar: torch.Tensor,
     parameter cotangents of the (1,) MSE cotangent ``gbar`` and loss is
     ``gbar · mse`` when ``with_loss`` (else None).  The head bias gradient
     is exactly zero (Δu does not depend on it)."""
-    out = _poisson_launch(True, params, x, f, normalization, gbar, n_valid,
-                          n_mean, with_loss)
-    dparams, off = _unpack_dparams(params, out)
-    return dparams, out[off], (out[off + 1] if with_loss else None)
+    dparams, mse, loss = _poisson_launch(True, params, x, f, normalization,
+                                         gbar, n_valid, n_mean, with_loss)
+    return dparams, mse.view(()), (loss.view(()) if with_loss else None)
 
 
 def poisson_residual_fwd(params, x, f, normalization: float = 1.0,
                          n_valid: Optional[int] = None,
                          n_mean: Optional[int] = None) -> torch.Tensor:
     """Kernel 4 on a CUDA batch: the MSE (a 0-dim tensor)."""
-    out = _poisson_launch(False, params, x, f, normalization, None, n_valid,
-                          n_mean, False)
-    return out[0]
+    return _poisson_launch(False, params, x, f, normalization, None, n_valid,
+                           n_mean, False)[1].view(())
 
 
 class _PoissonSpec:
@@ -573,7 +658,6 @@ def poisson_residual_weighted_obj(params, x, f, weight,
         w = float(weight.reshape(-1)[0]) if torch.is_tensor(weight) else weight
         return poisson_residual_weighted_obj_plain(
             params, x, f, w, normalization, n_valid, n_mean)
-    _check_poisson_layout(params, x, f)
     if not torch.is_tensor(weight):
         weight = torch.tensor([float(weight)], dtype=x.dtype, device=x.device)
     spec = _PoissonSpec(normalization, n_valid, n_mean, weight.reshape(1))
@@ -591,7 +675,6 @@ def poisson_residual_mse(params, x, f, normalization: float = 1.0,
     if not _route(x, "poisson_residual"):
         return poisson_residual_mse_plain(params, x, f, normalization,
                                           n_valid, n_mean)
-    _check_poisson_layout(params, x, f)
     spec = _PoissonSpec(normalization, n_valid, n_mean)
     return _PoissonResidualMSE.apply(x, f.contiguous(), spec, *_flat(params))
 

@@ -79,8 +79,7 @@ def main():
         t, c = by_name.get(e.name, (0.0, 0))
         by_name[e.name] = (t + e.time_range.elapsed_us(), c + 1)
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1][0])
-    port = [kv for kv in ranked
-            if "ns_residual" in kv[0] or "reduce_partials" in kv[0]]
+    port = [kv for kv in ranked if "residual_kernel" in kv[0]]
     for title, rows in (("top kernels", ranked[:12]), ("the port's kernels", port)):
         print(f"{title} by device time per epoch (us, launches):")
         for name, (t, c) in rows:
