@@ -45,11 +45,19 @@ exits non-zero:
    evaluation and of its two host/device copies;
 9. kernel 5 (taylor_bundle, the per-point value, Jacobian and Hessian
    diagonal) against its plain version in float64: 2-32-32-32-3 at n =
-   1000, 100 and 4099 (not a tile multiple), d_in = 3 (seven streams) and
-   2-20-20-20-1 (a scalar head); max |Δ| ≤ 1e-12·max|ref| per output; repeat
-   calls bit-identical; the float32 instantiation's error against float64;
+   1000, 100 and 4099 (not a tile multiple), d_in = 3 (seven streams),
+   2-20-20-20-1 (a scalar head), 3-20-20-20-3 with dim 1, 2 and 3 at a
+   ragged n, widths 64 (3-64-64-3, 2-64-64-64-1), one-layer nets, and an
+   8-layer width-64 net whose weights are streamed layer by layer; max
+   |Δ| ≤ 1e-12·max|ref| per output; repeat calls bit-identical; the launch
+   plan (points per tile, streaming, shared bytes) equal to its Python
+   mirror (`mlp_bundle.bundle_plan`); the float32 instantiation's error
+   against float64 (at most 1e-5 of max|ref|); back-to-back calls at two
+   batch sizes, each bit-equal to the first at its size; the DMMA count of
+   each float64 instance and no HMMA (TF32) in any, from `cuobjdump -sass`;
 10. times of kernel 5 and its plain version at 100, 1,000, 262,144 and
-   1,048,576 points, float32 and float64, as in phase 5;
+   1,048,576 points, float32 and float64, as in phase 5, with the plan's
+   tile and grid;
 11. the slice: the Poiseuille Levenberg–Marquardt round (10 iterations
    after a 0-epoch Adam round, float64, the reference options) through
    tpinn_torch.cases.poiseuille_flow.main with TPINN_USE_PALLAS=1, the
@@ -70,7 +78,7 @@ exits non-zero:
    launch's last block resets the ticket;
 14. the device time per launch of kernels 1-5 under torch.profiler beside
    the event-timed call time, the device kernels one call launches (1 for
-   each), at the main shapes and, for kernels 1-4, at 1,048,576 points.
+   each), at the main shapes and at 1,048,576 points.
 
 The line before the last is the kernels' JSON record, the last line
 ``{"ok": true, "device": {...}}``.
@@ -200,6 +208,35 @@ def bundle_flops_per_point(widths, dim):
         if l < L - 1:
             f += wo * (1 + 2 + 2 + dim + dim * (2 if l == 0 else 4))
     return f
+
+
+def sass_counts(lib_path):
+    """{kernel-5 instance: {"DMMA": n, "HMMA": n}} from ``cuobjdump -sass``
+    of the built library (instances named by their template arguments:
+    Id / If for float64 / float32, then d_in and dim); None where the
+    toolkit has no cuobjdump."""
+    import re
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not os.path.exists(tool):
+        return None
+    out = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                         text=True, check=True).stdout
+    counts, name = {}, None
+    for line in out.splitlines():
+        m = re.search(r"Function : \S*taylor_bundle_kernelI(\w)Li(\d)ELi(\d)E",
+                      line)
+        if m:
+            name = f"I{m.group(1)} d_in {m.group(2)} dim {m.group(3)}"
+            counts[name] = {"DMMA": 0, "HMMA": 0}
+        elif "Function :" in line:
+            name = None
+        elif name is not None:
+            for op in ("DMMA", "HMMA"):
+                if re.search(rf"\b{op}\b", line):
+                    counts[name][op] += 1
+    return counts
 
 
 def bundle_problem(widths, n, seed, dtype, device):
@@ -796,16 +833,26 @@ def main():
         record["poisson_slice"] = slices
 
     with phase("9 kernel 5 (taylor_bundle) vs plain, float64"):
-        b_cases = [("2-32-32-32-3 n=1000", (2,) + WIDTHS + (3,), 1000),
-                   ("2-32-32-32-3 n=100", (2,) + WIDTHS + (3,), 100),
-                   ("2-32-32-32-3 n=4099", (2,) + WIDTHS + (3,), 4099),
-                   ("3-32-32-32-3 n=1000", (3,) + WIDTHS + (3,), 1000),
-                   ("2-20-20-20-1 n=1000", POISSON_WIDTHS, 1000)]
-        for name, widths, n in b_cases:
+        main_w = (2,) + WIDTHS + (3,)
+        b_cases = [("2-32-32-32-3 n=1000", main_w, 1000, None),
+                   ("2-32-32-32-3 n=100", main_w, 100, None),
+                   ("2-32-32-32-3 n=4099", main_w, 4099, None),
+                   ("3-32-32-32-3 n=1000", (3,) + WIDTHS + (3,), 1000, None),
+                   ("2-20-20-20-1 n=1000", POISSON_WIDTHS, 1000, None),
+                   ("3-20-20-20-3 n=1001 dim=1", (3, 20, 20, 20, 3), 1001, 1),
+                   ("3-20-20-20-3 n=1001 dim=2", (3, 20, 20, 20, 3), 1001, 2),
+                   ("3-20-20-20-3 n=1001 dim=3", (3, 20, 20, 20, 3), 1001, 3),
+                   ("3-64-64-3 n=777", (3, 64, 64, 3), 777, None),
+                   ("2-64-64-64-1 n=4099", (2, 64, 64, 64, 1), 4099, None),
+                   ("2-3 n=999 (one layer)", (2, 3), 999, None),
+                   ("3-1 n=1003 dim=2 (one layer)", (3, 1), 1003, 2),
+                   ("3-64x7-3 n=333 (streamed weights)",
+                    (3,) + (64,) * 7 + (3,), 333, None)]
+        for name, widths, n, dim in b_cases:
             params, x = bundle_problem(widths, n, 21, f64, dev)
-            got = mb.mlp_taylor_bundle(params, x)
+            got = mb.mlp_taylor_bundle(params, x, dim)
             torch.cuda.synchronize()
-            ref = mb.mlp_taylor_bundle_plain(params, x)
+            ref = mb.mlp_taylor_bundle_plain(params, x, dim)
             errs_b = []
             for part, a, b in zip(("value", "jac", "hdiag"), got, ref):
                 if a.shape != b.shape:
@@ -816,23 +863,64 @@ def main():
                 if not e <= 1e-12 * scale:
                     raise AssertionError(f"{name} {part}: max abs err "
                                          f"{e:.3e} above 1e-12 x {scale:.3e}")
-                errs_b.append((part, e, e / scale))
-            again = mb.mlp_taylor_bundle(params, x)
+                errs_b.append((part, e, e / scale if scale else 0.0))
+            again = mb.mlp_taylor_bundle(params, x, dim)
             if not all(torch.equal(a, b) for a, b in zip(got, again)):
                 raise AssertionError(f"{name}: repeat call not bit-identical")
+            n_cols = widths[0] if dim is None else dim
+            plan = mb._PLANS[("taylor_bundle", 0, f64, widths, n_cols, n)]
+            mirror = mb.bundle_plan(widths, widths[0], n_cols, 8)
+            if (plan.P, bool(plan.streamed), plan.smem) != mirror:
+                raise AssertionError(f"{name}: plan (P, streamed, smem) "
+                                     f"{(plan.P, plan.streamed, plan.smem)} "
+                                     f"!= mirror {mirror}")
             p32 = [{k: t.float() for k, t in p.items()} for p in params]
-            got32 = mb.mlp_taylor_bundle(p32, x.float())
+            got32 = mb.mlp_taylor_bundle(p32, x.float(), dim)
             e32 = max(float(torch.max(torch.abs(a.double() - b)))
-                      / float(torch.max(torch.abs(b)))
+                      / max(float(torch.max(torch.abs(b))), 1e-300)
                       for a, b in zip(got32, got))
-            print(f"  {name}: " + ", ".join(
+            if not e32 <= 1e-5:
+                raise AssertionError(f"{name}: float32 vs float64 {e32:.2e}")
+            print(f"  {name}: P {plan.P}, G {plan.G}, {plan.smem} B"
+                  f"{', weights streamed' if plan.streamed else ''}; " + ", ".join(
                 f"{p} max abs {e:.2e} (rel to max {r:.2e})"
                 for p, e, r in errs_b)
                 + f"; repeat bit-identical; float32 vs float64 max abs / "
                 f"max|ref| {e32:.2e}")
-            record[f"bundle {name}"] = {"errs": errs_b, "f32_err": e32}
+            record[f"bundle {name}"] = {"errs": errs_b, "f32_err": e32,
+                                        "P": plan.P, "G": plan.G,
+                                        "streamed": plan.streamed}
             if name == "2-32-32-32-3 n=1000":
                 errs["taylor_bundle"] = max(e for _, e, _ in errs_b)
+        # back-to-back calls at two batch sizes (two grids) on one stream
+        b_in = {n: bundle_problem(main_w, n, 25, f64, dev)
+                for n in (1000, 50_000)}
+        first = {}
+        for _ in range(3):
+            for n, (params, x) in b_in.items():
+                got = mb.mlp_taylor_bundle(params, x)
+                ref_ = first.setdefault(n, got)
+                if not all(torch.equal(a, b) for a, b in zip(got, ref_)):
+                    raise AssertionError(f"kernel 5 at n={n}: a later call "
+                                         "differs")
+        for n, (params, x) in b_in.items():
+            for a, b in zip(first[n], mb.mlp_taylor_bundle_plain(params, x)):
+                if not float(torch.max(torch.abs(a - b))) <= \
+                        1e-12 * float(torch.max(torch.abs(b))):
+                    raise AssertionError(f"kernel 5 at n={n}: off the plain "
+                                         "version")
+        print("  kernel 5 alternating n = 1000 / 50,000, three rounds: every "
+              "call bit-equal to the first at its size, which matches the "
+              "plain version")
+        # what the compiler made of the f64 and f32 instances
+        sass = sass_counts(info.paths["taylor_bundle.cu"])
+        print(f"  cuobjdump -sass: {sass}")
+        if sass is not None:
+            if any(v["DMMA"] == 0 for k, v in sass.items() if "Id" in k):
+                raise AssertionError(f"an f64 instance issues no DMMA: {sass}")
+            if any(v["HMMA"] for v in sass.values()):
+                raise AssertionError(f"an instance issues HMMA (TF32): {sass}")
+        record["bundle_sass"] = sass
 
     with phase("10 kernel 5 times (CUDA events, median of 10 runs)"):
         widths = (2,) + WIDTHS + (3,)
@@ -857,8 +945,11 @@ def main():
                 row["ops_ms"] = 1e3 * ops / PEAK_FLOPS[dname]
                 row["bytes_ms"] = 1e3 * nbytes / PEAK_BYTES
                 row["flops_per_point"] = ops / n
+                plan = mb._PLANS[("taylor_bundle", 0, dtype, widths, 2, n)]
+                row["P"], row["G"] = plan.P, plan.G
                 times[("bundle", dname, n)] = row
-                print(f"  kernel 5 {dname} n={n}: {row['kernel']:.4f} ms "
+                print(f"  kernel 5 {dname} n={n} (P {plan.P}, G {plan.G}): "
+                      f"{row['kernel']:.4f} ms "
                       f"(bound {row['bound']:.5f} by {row['bound_by']}: "
                       f"operations {row['ops_ms']:.5f}, bytes "
                       f"{row['bytes_ms']:.5f}; plain {row['plain']:.4f})",
@@ -1100,9 +1191,12 @@ def main():
                         params, x, f))):
                 dev_t[(key, n)] = device_profile(fn, calls)
             del params, x, f
-        params, x = bundle_problem((2,) + WIDTHS + (3,), 1000, 7, f64, dev)
-        dev_t[("taylor_bundle", 1000)] = device_profile(
-            lambda: mb.mlp_taylor_bundle(params, x))
+        for n in (1000, 1_048_576):
+            params, x = bundle_problem((2,) + WIDTHS + (3,), n, 7, f64, dev)
+            dev_t[("taylor_bundle", n)] = device_profile(
+                lambda: mb.mlp_taylor_bundle(params, x),
+                20 if n <= 10_000 else 3)
+            del params, x
         torch.cuda.empty_cache()
         call_ms = {("ns_residual_bwd", 1000): times[("ns", "float64", 1000)]["bwd"],
                    ("ns_residual_fwd", 1000): times[("ns", "float64", 1000)]["fwd"],
@@ -1112,7 +1206,8 @@ def main():
                    ("ns_residual_fwd", 1_048_576): times[("ns", "float64", 1_048_576)]["fwd"],
                    ("poisson_residual_bwd", 1_048_576): times[("poisson", "float64", 1_048_576)]["bwd"],
                    ("poisson_residual_fwd", 1_048_576): times[("poisson", "float64", 1_048_576)]["fwd"],
-                   ("taylor_bundle", 1000): times[("bundle", "float64", 1000)]["kernel"]}
+                   ("taylor_bundle", 1000): times[("bundle", "float64", 1000)]["kernel"],
+                   ("taylor_bundle", 1_048_576): times[("bundle", "float64", 1_048_576)]["kernel"]}
         for (key, n), (d_ms, per_call, names) in dev_t.items():
             print(f"  {key} n={n}: device {1e3 * d_ms:.2f} us per launch, "
                   f"{per_call:g} device kernels per call, call "

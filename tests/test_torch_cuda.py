@@ -1,9 +1,10 @@
 """The CUDA kernels on the card (skipped where there is none): the NS
-kernels 1-2 and the Poisson kernels 3-4 against their plain versions (the
-main widths, widths that the tile layout pads, d_in 3, ragged and masked
-batches), bit-identical repeats, the forward MSEs equal to the backward's,
-one device kernel per call, and a short round of each slice on the card
-against the CPU.
+kernels 1-2, the Poisson kernels 3-4 and the Taylor-bundle kernel 5 against
+their plain versions (the main widths, widths that the tile layout pads,
+d_in 3, ragged and masked batches; kernel 5 also with dim 1-3, a one-layer
+net and streamed weights), bit-identical repeats, the forward MSEs equal to
+the backward's, float32 against float64, one device kernel per call, and a
+short round of each slice on the card against the CPU.
 
 This file imports neither JAX nor tpinn, so it runs on the machine with the
 card, where those are not installed; the repo's conftest files import JAX,
@@ -327,6 +328,91 @@ def test_taylor_bundle_matches_plain_on_card(cuda, d_in, d_out, n, dim):
             1e-12 * float(torch.max(torch.abs(b)))
     again = mb.mlp_taylor_bundle(params, x, dim)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d_in,hidden,d_out,n,dim", [
+    (3, (20, 20, 20), 3, 1001, 1),
+    (3, (20, 20, 20), 3, 1001, 2),
+    (3, (20, 20, 20), 3, 1001, 3),
+    (3, (64, 64), 3, 777, 3),
+    (2, (64, 64, 64), 1, 4099, 2),
+    (2, (), 3, 999, 2),
+    (3, (), 1, 1003, 3),
+    (3, (64,) * 7, 3, 333, 3),
+])
+def test_taylor_bundle_tiles_on_card(cuda, d_in, hidden, d_out, n, dim):
+    """Kernel 5 at ragged n (no multiple of any tile), d_in 3 with dim 1-3,
+    widths 20 and 64, a one-layer net and a net whose weights are streamed
+    layer by layer: against its plain version at 1e-12·max|ref| per
+    output, repeats bit-identical, the launch plan equal to its mirror."""
+    params, x = _bundle_case(d_in, d_out, n, 23, cuda, hidden)
+    got = mb.mlp_taylor_bundle(params, x, dim)
+    ref = mb.mlp_taylor_bundle_plain(params, x, dim)
+    for a, b in zip(got, ref):
+        assert a.shape == b.shape
+        assert float(torch.max(torch.abs(a - b))) <= \
+            1e-12 * float(torch.max(torch.abs(b)))
+    again = mb.mlp_taylor_bundle(params, x, dim)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    widths = (d_in,) + hidden + (d_out,)
+    plan = mb._PLANS[("taylor_bundle", x.device.index, x.dtype,
+                      widths, dim, n)]
+    assert (plan.P, bool(plan.streamed), plan.smem) == \
+        mb.bundle_plan(widths, d_in, dim, 8)
+
+
+@pytest.mark.cuda
+def test_taylor_bundle_float32_on_card(cuda):
+    """The float32 instance (FFMA tiles, no TF32) against float64."""
+    params, x = _bundle_case(2, 3, 3001, 29, cuda)
+    ref = mb.mlp_taylor_bundle(params, x)
+    p32 = [{k: t.float() for k, t in p.items()} for p in params]
+    got = mb.mlp_taylor_bundle(p32, x.float())
+    for a, b in zip(got, ref):
+        assert a.dtype == torch.float32
+        err = float(torch.max(torch.abs(a.double() - b)))
+        assert err <= 1e-5 * float(torch.max(torch.abs(b))), err
+
+
+@pytest.mark.cuda
+def test_taylor_bundle_back_to_back_on_card(cuda):
+    """Calls at two batch sizes (two grids) in turns on one stream: every
+    call bit-equal to the first at its size, which matches the plain
+    version."""
+    cases = {n: _bundle_case(2, 3, n, 31, cuda) for n in (1000, 50_000)}
+    first = {}
+    for _ in range(3):
+        for n, (params, x) in cases.items():
+            got = mb.mlp_taylor_bundle(params, x)
+            ref = first.setdefault(n, got)
+            assert all(torch.equal(a, b) for a, b in zip(got, ref)), n
+    for n, (params, x) in cases.items():
+        for a, b in zip(first[n], mb.mlp_taylor_bundle_plain(params, x)):
+            assert float(torch.max(torch.abs(a - b))) <= \
+                1e-12 * float(torch.max(torch.abs(b)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1000, 1 << 20])
+def test_taylor_bundle_one_device_kernel_per_call(cuda, n):
+    """Each kernel-5 call is one device kernel, as torch.profiler sees it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    params, x = _bundle_case(2, 3, n, 9, cuda)
+    mb.mlp_taylor_bundle(params, x)
+    torch.cuda.synchronize()
+    for _ in range(3):  # a profiler session now and then drops records
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                mb.mlp_taylor_bundle(params, x)
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        if len(kernels) >= 3:
+            break
+    assert len(kernels) == 3, [e.name for e in kernels]
+    assert all("taylor_bundle_kernel" in e.name for e in kernels)
 
 
 @pytest.mark.cuda

@@ -53,11 +53,11 @@ _SIGNATURES = {
                                  _I, _P, _P, _P, _P],
     "poisson_residual_fwd_f32": [_P, _P, _P, _P, _P, _I, _I, _D, _D, _I, _I,
                                  _I, _P, _P, _P, _P],
-    "taylor_bundle_plan": [_I, _P, _I, _I, _I, _I, _P, _P, _P],
-    "taylor_bundle_f64": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P,
-                          _P, _P],
-    "taylor_bundle_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P, _P,
-                          _P, _P],
+    "taylor_bundle_plan": [_I, _P, _I, _I, _I, _I, _P, _P, _P, _P],
+    "taylor_bundle_f64": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P,
+                          _P],
+    "taylor_bundle_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P,
+                          _P],
 }
 
 

@@ -2,7 +2,9 @@
 //
 // Included by ns_residual.cu (Navier–Stokes head) and poisson_residual.cu
 // (Poisson head); each source is its own translation unit and shared library.
-// taylor_bundle.cu (kernel 5) takes only Net, Weights, make_net and tanh_t.
+// taylor_bundle.cu (kernel 5) takes Net, Weights, make_net, tanh_t, the
+// stream-grouped warp tiles (StreamTile), the tile constants and allow_smem,
+// and has its own layout, layer jobs, kernel and plan.
 // What is here is independent of the PDE:
 //   * the shared-memory layout of one block (`Layout`, mirrored by
 //     tile_layout in tpinn_torch/kernels/mlp_bundle.py);
@@ -40,7 +42,6 @@ namespace {
 
 constexpr int kMaxLayers = 8;  // Dense layers, head included
 constexpr int kMaxWidth = 64;  // any layer's output width
-constexpr int kNpl = kMaxWidth / 32;  // neurons per lane (kernel 5)
 constexpr int kNh = 2;  // Hessian-diagonal streams: the two spatial columns
 constexpr int kThreads = 512;  // threads of a residual block
 constexpr int kWarps = kThreads / 32;

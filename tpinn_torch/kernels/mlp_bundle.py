@@ -35,12 +35,16 @@ call that launches it).  A call of kernels 1-4 checks its tensors, looks up
 the plan of its shape (computed once: tile, grid, shared bytes), makes one
 allocation for the block partials and the outputs, and launches once;
 ``tile_layout`` and ``plan_points`` mirror the plan on the host, for the
-fit checks and the tests.
+fit checks and the tests.  A kernel-5 call does the same with one
+allocation for value, jac and hdiag, and takes the autograd Function only
+when a gradient could flow; ``bundle_layout`` and ``bundle_plan`` mirror its
+plan.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
@@ -710,19 +714,47 @@ def poisson_residual_weighted_obj_plain(params, x, f, weight: float,
 # MLP at every point; no reduction, no reverse mode
 # ---------------------------------------------------------------------------
 
-BUNDLE_MAX_POINTS = 8  # points per block (one warp each)
+TWO_BLOCK_SMEM = 113 * 1024  # bytes of a block that leaves room for two per SM
+BUNDLE_TILE_POINTS = (32, 16, 8)  # candidate points per kernel-5 tile
 
 
-def bundle_smem_elems(widths: Sequence[int], d_in: int, dim: int,
-                      points: int) -> int:
-    """Shared-memory elements of one kernel-5 block (mirrors
-    ``BundleLayout::build`` in csrc/taylor_bundle.cu): the weights with
-    padded rows, then per point its input row and two stream buffers of
-    (1 + 2·dim)·max_width."""
+def bundle_layout(widths: Sequence[int], d_in: int, dim: int, points: int,
+                  streamed: bool) -> dict:
+    """One kernel-5 block's shared-memory layout in elements (mirrors
+    ``BundleLayout::build`` in csrc/taylor_bundle.cu): the padded weights
+    (all resident, or W_0 resident and two slots for the larger W_l of
+    l >= 1 when ``streamed``), the biases, two input buffers of
+    ``points``·d_in and two stream buffers of S·points rows (S = 1 + 2·dim)
+    of the largest row stride."""
     L = len(widths) - 1
-    total = sum(widths[l] * (widths[l + 1] + 1) + widths[l + 1]
-                for l in range(L))
-    return total + points * (d_in + 2 * (1 + 2 * dim) * max(widths[1:]))
+    wp = [d_in] + [_pad8(int(w)) for w in widths[1:]]
+    ld = [d_in] + [w + SKEW for w in wp[1:]]
+    sizes = [wp[l] * ld[l + 1] for l in range(L)]
+    resident = sizes[:1] if streamed else sizes
+    slot = max(sizes[1:], default=0) if streamed else 0
+    total = (sum(resident) + sum(wp[1:]) + 2 * slot
+             + 2 * _align4(points * d_in)
+             + 2 * (1 + 2 * dim) * points * max(ld[1:]))
+    return {"wp": wp, "ld": ld, "slot": slot, "total": total}
+
+
+@functools.lru_cache(maxsize=None)
+def bundle_plan(widths: Tuple[int, ...], d_in: int, dim: int,
+                itemsize: int) -> Tuple[int, bool, int]:
+    """(points per tile, streamed, shared bytes) of kernel 5 for one net
+    (mirrors ``bundle_points`` in csrc/taylor_bundle.cu): the largest tile
+    whose block leaves room for two blocks per SM with the weights
+    resident; else the largest that fits SMEM_LIMIT with the weights
+    resident; else the largest with the weights streamed one layer at a
+    time.  (0, False, 0) when nothing fits."""
+    for budget, streamed in ((TWO_BLOCK_SMEM, False), (SMEM_LIMIT, False),
+                             (SMEM_LIMIT, True)):
+        for P in BUNDLE_TILE_POINTS:
+            nbytes = bundle_layout(widths, d_in, dim, P, streamed)["total"] \
+                * itemsize
+            if nbytes <= budget:
+                return P, streamed, nbytes
+    return 0, False, 0
 
 
 def _check_bundle_shape(params, x, dim) -> Tuple[List[int], int]:
@@ -742,69 +774,90 @@ def _check_bundle_shape(params, x, dim) -> Tuple[List[int], int]:
         raise ValueError(f"mlp_taylor_bundle: dim={dim} for d_in={d_in}; "
                          "kernel 5 takes 1 <= dim <= d_in")
     L = len(widths) - 1
-    itemsize = x.element_size()
     if (not 1 <= L <= MAX_LAYERS or max(widths[1:]) > MAX_WIDTH
-            or bundle_smem_elems(widths, d_in, dim, 1) * itemsize
-            > SMEM_LIMIT):
+            or not bundle_plan(tuple(widths), d_in, dim,
+                               x.element_size())[0]):
         raise ValueError(
             f"mlp_taylor_bundle: kernel 5 does not take widths {widths}: at "
-            f"most {MAX_LAYERS} layers of at most {MAX_WIDTH}, and one "
-            f"point's working set within {SMEM_LIMIT} bytes of shared memory")
+            f"most {MAX_LAYERS} layers of at most {MAX_WIDTH}, and an "
+            f"8-point tile within {SMEM_LIMIT} bytes of shared memory")
     return widths, dim
 
 
-def _bundle_launch(params, x: torch.Tensor, widths: List[int], dim: int):
-    """Kernel 5 on a CUDA batch whose shape ``_check_bundle_shape`` took."""
+class _BundlePlan:
+    """What one kernel-5 call shape needs beyond its tensors, computed
+    once: the entry point, points per tile, grid, shared bytes, whether the
+    weights are streamed, the widths array, the call's buffer size and
+    where value, jac and hdiag sit in it (shape, strides, offset)."""
+
+    __slots__ = ("fn", "P", "G", "smem", "streamed", "L", "w_arr", "size",
+                 "views")
+
+
+def _bundle_plan(x: torch.Tensor, widths: List[int], dim: int) -> _BundlePlan:
+    """The cached plan of a kernel-5 call shape (device, dtype, widths, dim,
+    n); raises for a dtype or size the kernel does not take (checked once
+    per shape)."""
+    n = int(x.shape[0])
+    key = ("taylor_bundle", x.device.index, x.dtype, tuple(widths), dim, n)
+    plan = _PLANS.get(key)
+    if plan is not None:
+        return plan
     from tpinn_torch.kernels import build
 
-    if x.device.type != "cuda":
-        raise ValueError("taylor_bundle kernel runs on CUDA tensors only")
-    if x.dtype not in (torch.float32, torch.float64):
+    if x.dtype not in ITEMSIZE:
         raise TypeError(f"taylor_bundle kernel takes float32/float64, not "
                         f"{x.dtype}")
-    if not x.is_contiguous():
-        raise ValueError("taylor_bundle kernel takes a contiguous batch")
-    if x.shape[0] * widths[-1] * dim >= 2 ** 31:
-        raise ValueError(f"batch of {x.shape[0]} points exceeds the int32 "
-                         "range of the outputs")
-    for p in params:
-        for t in (p["kernel"], p["bias"]):
-            if t.device != x.device or t.dtype != x.dtype:
-                raise ValueError("params must share the batch's device and "
-                                 "dtype")
-            if not t.is_contiguous():
-                raise ValueError("params must be contiguous")
-    n, d_in, d_out, L = int(x.shape[0]), int(x.shape[1]), widths[-1], \
-        len(widths) - 1
-    value = torch.empty((n, d_out), dtype=x.dtype, device=x.device)
-    jac = torch.empty((n, d_out, dim), dtype=x.dtype, device=x.device)
-    hdiag = torch.empty((n, d_out, dim), dtype=x.dtype, device=x.device)
-    if n == 0:
-        return value, jac, hdiag
+    d_in, d_out, L = int(x.shape[1]), widths[-1], len(widths) - 1
+    if n * d_out * dim >= 2 ** 31:
+        raise ValueError(f"batch of {n} points exceeds the int32 range of "
+                         "the outputs")
     lib = build.library("taylor_bundle.cu")
     f64 = x.dtype == torch.float64
-    w_arr = (ctypes.c_int * (L + 1))(*widths)
+    plan = _BundlePlan()
+    plan.L = L
+    plan.w_arr = (ctypes.c_int * (L + 1))(*widths)
+    outs = [ctypes.c_int(0) for _ in range(4)]
     with torch.cuda.device(x.device):
-        key = ("taylor_bundle", x.device.index, x.dtype, tuple(widths), dim, n)
-        plan = _PLANS.get(key)
-        if plan is None:
-            outs = [ctypes.c_int(0) for _ in range(3)]
-            rc = lib.taylor_bundle_plan(
-                int(f64), ctypes.addressof(w_arr), L, d_in, dim, n,
-                *[ctypes.addressof(o) for o in outs])
-            if rc != 0:
-                raise RuntimeError(f"taylor_bundle_plan failed with code {rc}")
-            plan = tuple(o.value for o in outs)  # (P, G, smem bytes)
-            _PLANS[key] = plan
-        P, G, smem = plan
-        w_ptrs = (ctypes.c_void_p * L)(*[p["kernel"].data_ptr() for p in params])
-        b_ptrs = (ctypes.c_void_p * L)(*[p["bias"].data_ptr() for p in params])
-        stream = torch.cuda.current_stream(x.device).cuda_stream
-        fn = lib.taylor_bundle_f64 if f64 else lib.taylor_bundle_f32
-        rc = fn(x.data_ptr(), ctypes.addressof(w_ptrs),
-                ctypes.addressof(b_ptrs), ctypes.addressof(w_arr), L, d_in,
-                dim, n, P, G, smem, value.data_ptr(), jac.data_ptr(),
-                hdiag.data_ptr(), stream)
+        rc = lib.taylor_bundle_plan(int(f64), ctypes.addressof(plan.w_arr), L,
+                                    d_in, dim, n,
+                                    *[ctypes.addressof(o) for o in outs])
+    if rc != 0:
+        raise RuntimeError(f"taylor_bundle_plan failed with code {rc}")
+    plan.P, plan.G, plan.smem, plan.streamed = (o.value for o in outs)
+    plan.fn = lib.taylor_bundle_f64 if f64 else lib.taylor_bundle_f32
+    nj = n * d_out * dim
+    plan.size = n * d_out + 2 * nj
+    plan.views = [((n, d_out), (d_out, 1), 0),
+                  ((n, d_out, dim), (d_out * dim, dim, 1), n * d_out),
+                  ((n, d_out, dim), (d_out * dim, dim, 1), n * d_out + nj)]
+    _PLANS[key] = plan
+    return plan
+
+
+def _bundle_launch(params, x: torch.Tensor, widths: List[int], dim: int):
+    """Kernel 5 on a CUDA batch whose shape ``_check_bundle_shape`` took:
+    (value, jac, hdiag) as views of one buffer."""
+    if x.device.type != "cuda":
+        raise ValueError("taylor_bundle kernel runs on CUDA tensors only")
+    plan = _bundle_plan(x, widths, dim)
+    _check_tensors(params, x, "taylor_bundle")
+    buf = torch.empty(plan.size, dtype=x.dtype, device=x.device)
+    value, jac, hdiag = (buf.as_strided(*v) for v in plan.views)
+    if x.shape[0] == 0:
+        return value, jac, hdiag
+    L = plan.L
+    w_ptrs = (ctypes.c_void_p * L)(*[p["kernel"].data_ptr() for p in params])
+    b_ptrs = (ctypes.c_void_p * L)(*[p["bias"].data_ptr() for p in params])
+    index = x.device.index
+    args = (x.data_ptr(), w_ptrs, b_ptrs, plan.w_arr, L, int(x.shape[1]), dim,
+            int(x.shape[0]), plan.P, plan.G, plan.smem, plan.streamed,
+            buf.data_ptr(), _stream(index))
+    if index == torch.cuda.current_device():
+        rc = plan.fn(*args)
+    else:
+        with torch.cuda.device(index):
+            rc = plan.fn(*args)
     if rc != 0:
         raise RuntimeError(f"taylor_bundle launch failed: cudaError {rc}")
     LAUNCHES["taylor_bundle"] += 1
@@ -840,9 +893,15 @@ def mlp_taylor_bundle(params, x: torch.Tensor, dim: Optional[int] = None):
     input columns 0..dim-1 (dim = d_in by default).  Kernel 5 on a CUDA
     batch, its plain version on a CPU batch; forward only on both: a
     gradient taken through the result raises.  Shapes kernel 5 does not
-    take raise ValueError on both routes."""
+    take raise ValueError on both routes.  A call that needs no gradient
+    skips the autograd Function."""
     widths, dim = _check_bundle_shape(params, x, dim)
-    return _TaylorBundle.apply(x, widths, dim, *_flat(params))
+    if torch.is_grad_enabled() and (x.requires_grad or any(
+            t.requires_grad for p in params for t in (p["kernel"], p["bias"]))):
+        return _TaylorBundle.apply(x, widths, dim, *_flat(params))
+    if _route(x, "mlp_taylor_bundle"):
+        return _bundle_launch(params, x, widths, dim)
+    return mlp_taylor_bundle_plain(params, x, dim)
 
 
 def mlp_taylor_bundle_plain(params, x: torch.Tensor,
