@@ -78,10 +78,33 @@ exits non-zero:
    launch's last block resets the ticket;
 14. the device time per launch of kernels 1-5 under torch.profiler beside
    the event-timed call time, the device kernels one call launches (1 for
-   each), at the main shapes and at 1,048,576 points.
+   each), at the main shapes and at 1,048,576 points;
+15. the slice: the Poiseuille main path, Adam 100 epochs then the dense
+   BFGS round ("jax-bfgs", 40 iterations), float64, through
+   tpinn_torch.cases.poiseuille_flow.main, with the launch counts read
+   around it (one kernel-1 launch per value and gradient, one kernel-2
+   launch per logged evaluation), the plain variant, held against the same
+   run on the CPU (every log through BFGS iteration 20 at 1e-8, the final
+   global loss at 5 %); a repeat of the BFGS round from the same state
+   bit-identical, with the host synchronisations it issues counted (torch's
+   sync debug mode); the iteration split (direction, evaluations, H update)
+   from a timed repeat, also bit-identical; the host scipy BFGS round
+   ("scipy-parity", 20 iterations) per iteration beside it; a float32 round
+   of 20 iterations, finite and descending, against float64;
+16. the paired variant (TPINN_USE_PALLAS=0, every loss a residual vector),
+   20 BFGS iterations on the card against the CPU at 1e-8;
+17. the Poisson case's "jax-bfgs" round (Adam 100 + BFGS 20, kernels 3/4,
+   one kernel-3 launch per evaluation) against the CPU at 1e-8;
+18. the artifacts and an exact resume on the card: 20 BFGS iterations
+   straight against 10, the run folder written (Model.json, the weights as
+   Weights.npz where h5py is missing, History_Loss.json, checkpoint.pkl,
+   Test_Options.txt), and 10 more in a new driver resuming it, every log
+   bit-identical; ``checkpoint.load_experiment`` reproduces the model's
+   outputs bit for bit.
 
-The line before the last is the kernels' JSON record, the last line
-``{"ok": true, "device": {...}}``.
+The line before the last is the kernels' JSON record (each kernel's
+launches on every path that runs it, ``launches`` being its slice's main
+path), the last line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -112,6 +135,15 @@ FINAL_LOSS_BAR = 0.05
 BUNDLE_SIZES = (100, 1000, 262_144, 1_048_576)
 LM_ITERS = 10
 HISTORY_BAR = 1e-8
+# the dense BFGS round (phase 15): 40 iterations on the card and the CPU, the
+# history held at the bar over iterations 0-20 and by its final global loss
+# after that (quasi-Newton rounds amplify rounding, PERF.md section 2)
+BFGS_ITERS = 40
+BFGS_HEAD_ITERS = 20
+SCIPY_BFGS_ITERS = 20
+F32_BFGS_ITERS = 20
+PAIRED_ITERS = 20
+RESUME_ITERS = 20
 
 
 def phase(name):
@@ -1219,15 +1251,287 @@ def main():
                                          "call_ms": call_ms[(k, n)]}
                             for (k, n), (d, c, _) in dev_t.items()}
 
-    def kernel_row(name, key, route_src, replaces, launches, row, n):
+    with phase("15 the slice: Poiseuille Adam 100 + dense BFGS 40, float64"):
+        from tpinn_torch import config
+        from tpinn_torch.cases import poiseuille_flow
+        from tpinn_torch.optimize import minimize
+
+        def bfgs_case(td, device, second_round="jax-bfgs",
+                      iters=BFGS_ITERS, adam_epochs=100, resume_from=None):
+            return poiseuille_flow.main(
+                td, adam_epochs=adam_epochs, device=device,
+                second_round=second_round, epochs=iters,
+                resume_from=resume_from)
+
+        with tempfile.TemporaryDirectory() as td:
+            mb.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            bfgs_drv = bfgs_case(td, "cuda")
+            torch.cuda.synchronize()
+            bfgs_wall = time.perf_counter() - t0
+            bfgs_launches = dict(mb.LAUNCHES)
+        pb = bfgs_drv.pb
+        h = pb.history
+        counts = pb.bfgs_counts
+        n_it = counts["iterations"]
+        print(f"  launches on the main path: {bfgs_launches}; wall "
+              f"{bfgs_wall:.2f} s; {counts}")
+        if pb.last_opt_state["kind"] != "bfgs_plain":
+            raise AssertionError(f"variant {pb.last_opt_state['kind']}")
+        if h.round_names != ["keras_Adam", "jax_BFGS"] or n_it != BFGS_ITERS:
+            raise AssertionError(f"rounds {h.round_names}, {n_it} iterations")
+        if not np.isfinite(np.concatenate(
+                [h.loss_global] + [e["log"] for e in h.losses.values()]
+                + [e["log"] for e in h.losses_test.values()])).all():
+            raise AssertionError("non-finite logged loss")
+        i_bfgs = [i for i, r in enumerate(h.rounds_idx) if r == 2]
+        if not h.loss_global[i_bfgs[-1]] < h.loss_global[i_bfgs[0]]:
+            raise AssertionError("BFGS did not reduce the loss")
+        k1 = bfgs_launches["ns_residual_bwd"] - 100
+        if (k1 != counts["evaluations"]
+                or bfgs_launches["ns_residual_fwd"] != len(h.iters)
+                or bfgs_launches["taylor_bundle"]
+                or bfgs_launches["poisson_residual_bwd"]):
+            raise AssertionError(f"main path launches {bfgs_launches} for "
+                                 f"{counts}")
+        trials = counts["trials"] / n_it
+        bfgs_ms = 1e3 * h.wall_times[1] / n_it
+        print(f"  per BFGS iteration: {(k1 - 1) / n_it:.3f} kernel-1 "
+              f"launches (line-search trials + 2 = {trials + 2:.3f}), "
+              f"{trials:.3f} trials, {bfgs_ms:.2f} ms (round wall / "
+              f"iterations, logging and checkpoints included)")
+        with tempfile.TemporaryDirectory() as td:
+            ref = bfgs_case(td, "cpu")
+        hr = ref.pb.history
+        if hr.iters != h.iters:
+            raise AssertionError(f"card and CPU log at other iterations "
+                                 f"({h.iters} / {hr.iters})")
+        head = [i for i, r in enumerate(hr.rounds_idx)
+                if r == 1 or hr.iter_round[i] <= BFGS_HEAD_ITERS]
+        d_head = rel_dev(hr, h, head)
+        d_all = rel_dev(hr, h, list(range(len(h.iters))))
+        d_final = abs(h.loss_global[-1] / hr.loss_global[-1] - 1.0)
+        print(f"  loss_global {h.loss_global[i_bfgs[0]]:.6e} -> "
+              f"{h.loss_global[-1]:.6e}; against the plain versions on the "
+              f"CPU: Adam + BFGS iterations 0-{BFGS_HEAD_ITERS} "
+              f"{d_head:.2e}, every log {d_all:.2e}, final global loss "
+              f"{d_final:.2e} apart (CPU {hr.loss_global[-1]:.6e}, variant "
+              f"{ref.pb.last_opt_state['kind']})")
+        if d_head > HISTORY_BAR or d_final > FINAL_LOSS_BAR:
+            raise AssertionError("card and CPU BFGS histories disagree")
+
+        def logs(hist):
+            return np.array([hist.loss_global]
+                            + [e["log"] for e in hist.losses.values()]
+                            + [e["log"] for e in hist.losses_test.values()])
+
+        # a repeat from the same state (its callbacks off, so no checkpoint
+        # is written), with every synchronising operation the host issues
+        # recorded (torch's sync debug mode)
+        import warnings
+
+        with tempfile.TemporaryDirectory() as td, \
+                warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            drv_b = bfgs_case(td, "cuda", second_round="none")
+            drv_b.pb.callbacks.clear()
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                minimize(drv_b.pb, "jax", "BFGS", num_epochs=BFGS_ITERS)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        syncs = sum("synchroniz" in str(w.message) for w in caught)
+        same = np.array_equal(logs(drv_b.pb.history), logs(h))
+        print(f"  repeat from the same state bit-identical: {same}; host "
+              f"synchronisations in the round (sync debug mode) {syncs}, "
+              f"{syncs / n_it:.2f} per iteration (line-search flags "
+              f"{trials:.2f}, logged evaluations {len(i_bfgs) / n_it:.2f})")
+        if not same:
+            dev = np.max(np.abs(logs(drv_b.pb.history) - logs(h)))
+            raise AssertionError(f"repeat differs by {dev:.3e}")
+        with tempfile.TemporaryDirectory() as td:
+            drv_c = bfgs_case(td, "cuda", second_round="none")
+            drv_c.pb.callbacks.clear()
+            minimize(drv_c.pb, "jax", "BFGS", num_epochs=BFGS_ITERS,
+                     timed=True)
+        iter_times = drv_c.pb.bfgs_times[1:]
+        split = {k: 1e3 * float(np.median([t[k] for t in iter_times]))
+                 for k in ("direction", "evaluations", "update")}
+        split["round wall per iteration"] = (
+            1e3 * drv_c.pb.history.wall_times[1] / n_it)
+        timed_same = np.array_equal(logs(drv_c.pb.history), logs(h))
+        print("  iteration split (device synchronised at each boundary, "
+              "median of iterations 2-" + str(BFGS_ITERS) + "), ms: "
+              + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
+              + f"; timed round bit-identical too: {timed_same}")
+        if not timed_same:
+            raise AssertionError("the timed round differs")
+        with tempfile.TemporaryDirectory() as td:
+            mb.reset_launch_counts()
+            drv_d = bfgs_case(td, "cuda", second_round="scipy-parity",
+                              iters=SCIPY_BFGS_ITERS)
+            scipy_evals = mb.LAUNCHES["ns_residual_bwd"] - 100
+        hd = drv_d.pb.history
+        scipy_ms = 1e3 * hd.wall_times[1] / hd.iter_round[-1]
+        print(f"  host scipy BFGS (scipy-parity), {hd.iter_round[-1]} "
+              f"iterations: {scipy_ms:.2f} ms per iteration, "
+              f"{scipy_evals / hd.iter_round[-1]:.2f} evaluations per "
+              f"iteration; on-device BFGS {bfgs_ms:.2f} ms")
+        if hd.round_names != ["keras_Adam", "scipy_BFGS"] or not scipy_evals:
+            raise AssertionError(f"scipy round {hd.round_names}, "
+                                 f"{scipy_evals} evaluations")
+        config.set_dtype(torch.float32)
+        try:
+            with tempfile.TemporaryDirectory() as td:
+                drv_e = bfgs_case(td, "cuda", iters=F32_BFGS_ITERS)
+        finally:
+            config.set_dtype(None)
+        he = drv_e.pb.history
+        e_bfgs = [i for i, r in enumerate(he.rounds_idx) if r == 2]
+        f32_loss = np.array(he.loss_global)[e_bfgs]
+        f64_loss = np.array([h.loss_global[i] for i in i_bfgs
+                             if h.iter_round[i] <= F32_BFGS_ITERS])
+        f32_err = float(np.max(np.abs(f32_loss - f64_loss) / f64_loss))
+        print(f"  float32 round ({drv_e.pb.last_opt_state['kind']}), "
+              f"{F32_BFGS_ITERS} iterations: loss_global {f32_loss[0]:.6e} "
+              f"-> {f32_loss[-1]:.6e}; max rel deviation from float64 at "
+              f"its log points {f32_err:.2e}")
+        if (not np.isfinite(logs(he)).all() or not f32_loss[-1] < f32_loss[0]
+                or drv_e.pb.last_opt_state["carry"][0].dtype != torch.float32):
+            raise AssertionError("float32 BFGS round failed")
+        record["bfgs_slice"] = {
+            "launches": bfgs_launches, "counts": counts, "wall_s": bfgs_wall,
+            "ms_per_iteration": bfgs_ms, "trials_per_iteration": trials,
+            "kernel1_per_iteration": (k1 - 1) / n_it,
+            "syncs_per_iteration": syncs / n_it, "split_ms": split,
+            "scipy_ms_per_iteration": scipy_ms,
+            "scipy_evals_per_iteration": scipy_evals / hd.iter_round[-1],
+            "dev_head": d_head, "dev_all": d_all, "final_loss_rel": d_final,
+            "f32_rel_err": f32_err, "loss_first": h.loss_global[i_bfgs[0]],
+            "loss_last": h.loss_global[-1]}
+
+    with phase("16 the paired variant: TPINN_USE_PALLAS=0, BFGS 20"):
+        os.environ["TPINN_USE_PALLAS"] = "0"
+        try:
+            paired = {}
+            for device in ("cuda", "cpu"):
+                with tempfile.TemporaryDirectory() as td:
+                    mb.reset_launch_counts()
+                    paired[device] = (bfgs_case(td, device, adam_epochs=0,
+                                                iters=PAIRED_ITERS),
+                                      dict(mb.LAUNCHES))
+        finally:
+            os.environ.pop("TPINN_USE_PALLAS", None)
+        (gpu, g_launch), (cpu, _) = paired["cuda"], paired["cpu"]
+        kinds = [d.pb.last_opt_state["kind"] for d in (gpu, cpu)]
+        d_paired = rel_dev(cpu.pb.history, gpu.pb.history,
+                           list(range(len(gpu.pb.history.iters))))
+        print(f"  variant {kinds}; launches {g_launch}; loss_global "
+              f"{gpu.pb.history.loss_global[0]:.6e} -> "
+              f"{gpu.pb.history.loss_global[-1]:.6e}; against the CPU: max "
+              f"rel deviation of every log {d_paired:.2e}")
+        if kinds != ["bfgs_paired"] * 2 or d_paired > HISTORY_BAR:
+            raise AssertionError("paired round failed")
+        record["paired"] = {"dev": d_paired, "launches": g_launch}
+
+    with phase("17 Poisson jax-bfgs (kernels 3/4), Adam 100 + BFGS 20"):
+        from tpinn_torch.cases import poisson
+
+        runs = {}
+        for device in ("cuda", "cpu"):
+            with tempfile.TemporaryDirectory() as td:
+                mb.reset_launch_counts()
+                runs[device] = (poisson.main(PAIRED_ITERS, out_dir=td,
+                                             device=device,
+                                             second_round="jax-bfgs")[0],
+                                dict(mb.LAUNCHES))
+        (p_gpu, p_bfgs_launches), (p_cpu, _) = runs["cuda"], runs["cpu"]
+        hp = p_gpu.history
+        d_poisson = rel_dev(p_cpu.history, hp, list(range(len(hp.iters))))
+        pc = p_gpu.bfgs_counts
+        print(f"  launches {p_bfgs_launches}; {pc}; variant "
+              f"{p_gpu.last_opt_state['kind']}; loss_global "
+              f"{hp.loss_global[0]:.6e} -> {hp.loss_global[-1]:.6e}; "
+              f"against the CPU: max rel deviation of every log "
+              f"{d_poisson:.2e}; BFGS {1e3 * hp.wall_times[1] / PAIRED_ITERS:.2f}"
+              " ms per iteration")
+        if (p_bfgs_launches["poisson_residual_bwd"] != 100 + pc["evaluations"]
+                or p_bfgs_launches["poisson_residual_fwd"] != len(hp.iters)
+                or p_gpu.last_opt_state["kind"] != "bfgs_plain"
+                or hp.round_names != ["keras_Adam", "jax_BFGS"]
+                or d_poisson > HISTORY_BAR):
+            raise AssertionError("Poisson BFGS round failed")
+        record["poisson_bfgs"] = {"launches": p_bfgs_launches, "counts": pc,
+                                  "dev": d_poisson,
+                                  "ms_per_iteration":
+                                      1e3 * hp.wall_times[1] / PAIRED_ITERS}
+
+    with phase("18 artifacts and exact resume on the card"):
+        from tpinn_torch import checkpoint, utils
+
+        with tempfile.TemporaryDirectory() as td:
+            straight = bfgs_case(os.path.join(td, "a"), "cuda",
+                                 iters=RESUME_ITERS)
+            first = bfgs_case(os.path.join(td, "b"), "cuda",
+                              iters=RESUME_ITERS // 2)
+            resumed = bfgs_case(os.path.join(td, "b"), "cuda",
+                                iters=RESUME_ITERS // 2,
+                                resume_from=first.folder)
+            written = sorted(os.listdir(first.folder))
+            model, _ = checkpoint.load_experiment(first.folder,
+                                                  device="cuda")
+        hs, hr = straight.pb.history, resumed.pb.history
+        s = logs(hs)[:, [i for i, r in enumerate(hs.rounds_idx) if r == 2]]
+        r = logs(hr)
+        r2 = r[:, [i for i, k in enumerate(hr.rounds_idx) if k == 2]]
+        r3 = r[:, [i for i, k in enumerate(hr.rounds_idx) if k == 3]]
+        d_resume = max(float(np.max(np.abs(r2 - s[:, :2]))),
+                       float(np.max(np.abs(r3 - s[:, 1:]))))
+        weights = "Weights.h5" if utils.has_module("h5py") else "Weights.npz"
+        expect = sorted(["History_Loss.json", "Model.json",
+                         "Test_Options.txt", weights, "checkpoint.pkl"]
+                        + (["Graphic.jpg", "Loss_Trend_Full.png",
+                            "Loss_Trend_Reduced.png"]
+                           if utils.has_module("matplotlib") else []))
+        x = torch.tensor(np.random.default_rng(3).uniform(0, 1, (1000, 2))
+                         * np.array([1.0, 0.1]), device=dev)
+        with torch.no_grad():
+            same_out = torch.equal(model(x), resumed.model(x))
+        print(f"  rounds {hr.round_names}; the carry adopted: "
+              f"{resumed.pb.resume_opt_state is None}; straight "
+              f"{RESUME_ITERS} against {RESUME_ITERS // 2} + resume "
+              f"{RESUME_ITERS // 2}: largest difference of every log "
+              f"{d_resume:.3e}; files {written}; load_experiment "
+              f"reproduces the outputs bit for bit: {same_out}")
+        if d_resume != 0.0 or resumed.pb.resume_opt_state is not None:
+            raise AssertionError(f"resumed round differs from the straight "
+                                 f"one by {d_resume:.3e}")
+        if written != expect or not same_out:
+            raise AssertionError(f"artifacts {written} (expected {expect}), "
+                                 f"outputs equal {same_out}")
+        record["resume"] = {"dev": d_resume, "files": written}
+
+    # launches on each path that runs the kernel, each read around its run;
+    # "launches" is the count on the main path of the kernel's slice
+    paths = {"4 Poiseuille Adam": launches,
+             "8 Poisson Adam + L-BFGS-B": p_launches,
+             "11 Poiseuille LM (opt-in)": lm_launches,
+             "15 Poiseuille Adam + BFGS": bfgs_launches,
+             "17 Poisson Adam + BFGS": p_bfgs_launches}
+
+    def kernel_row(name, key, route_src, replaces, main, row, n):
         d_ms, per_call, _ = dev_t[(name, n)]
         return {"name": name, "route": "cuda", "source": route_src,
-                "replaces": replaces, "launches": launches[name],
+                "replaces": replaces, "launches": main[name],
                 "max_abs_err": errs[name], "ms": row[key],
                 "plain_ms": row[f"plain_{key}"],
                 "bound_ms": row[f"{key}_bound"],
                 "bound_by": row[f"{key}_bound_by"], "library_ms": None,
-                "device_ms": d_ms, "launches_per_call": per_call}
+                "device_ms": d_ms, "launches_per_call": per_call,
+                "launches_by_path": {k: v[name] for k, v in paths.items()
+                                     if v[name]}}
 
     ns_row = times[("ns", "float64", 1000)]
     p_row = times[("poisson", "float64", 200)]
@@ -1235,10 +1539,10 @@ def main():
     p_src = "tpinn_torch/kernels/csrc/poisson_residual.cu"
     ref = "tpinn/pallas/mlp_bundle.py"
     kernels = [
-        kernel_row("ns_residual_bwd", "bwd", ns_src, f"{ref}:556", launches,
-                   ns_row, 1000),
-        kernel_row("ns_residual_fwd", "fwd", ns_src, f"{ref}:473", launches,
-                   ns_row, 1000),
+        kernel_row("ns_residual_bwd", "bwd", ns_src, f"{ref}:556",
+                   bfgs_launches, ns_row, 1000),
+        kernel_row("ns_residual_fwd", "fwd", ns_src, f"{ref}:473",
+                   bfgs_launches, ns_row, 1000),
         kernel_row("poisson_residual_bwd", "bwd", p_src, f"{ref}:1268",
                    p_launches, p_row, 200),
         kernel_row("poisson_residual_fwd", "fwd", p_src, f"{ref}:1209",
@@ -1253,7 +1557,9 @@ def main():
         "max_abs_err": errs["taylor_bundle"], "ms": b_row["kernel"],
         "plain_ms": b_row["plain"], "bound_ms": b_row["bound"],
         "bound_by": b_row["bound_by"], "library_ms": None,
-        "device_ms": b_dev, "launches_per_call": b_per_call})
+        "device_ms": b_dev, "launches_per_call": b_per_call,
+        "launches_by_path": {k: v["taylor_bundle"] for k, v in paths.items()
+                             if v["taylor_bundle"]}})
     total = time.perf_counter() - t_all
     print(f"total {total:.1f} s")
     if args.out:

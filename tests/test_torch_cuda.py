@@ -4,7 +4,9 @@ their plain versions (the main widths, widths that the tile layout pads,
 d_in 3, ragged and masked batches; kernel 5 also with dim 1-3, a one-layer
 net and streamed weights), bit-identical repeats, the forward MSEs equal to
 the backward's, float32 against float64, one device kernel per call, and a
-short round of each slice on the card against the CPU.
+short round of each slice on the card against the CPU; the dense BFGS
+round on the card (against the CPU, one kernel-1 launch per evaluation,
+bit-identical repeats, and an exact resume from its run folder).
 
 This file imports neither JAX nor tpinn, so it runs on the machine with the
 card, where those are not installed; the repo's conftest files import JAX,
@@ -424,3 +426,78 @@ def test_taylor_bundle_backward_raises_on_card(cuda):
     flat = [t for p in leaves for t in (p["kernel"], p["bias"])]
     with pytest.raises(RuntimeError, match="TPINN_USE_PALLAS"):
         torch.autograd.grad((value.sum() + jac.sum() + hdiag.sum()), flat)
+
+
+def _bfgs_driver(tmp, device, iters, adam_epochs=10, resume_from=None):
+    """The Poiseuille case (reference options, float64) on ``device``:
+    Adam, then ``iters`` dense BFGS iterations, the artifacts written."""
+    from tpinn_torch.cases import poiseuille_flow
+
+    return poiseuille_flow.main(str(tmp), adam_epochs=adam_epochs,
+                                device=device, second_round="jax-bfgs",
+                                epochs=iters, resume_from=resume_from)
+
+
+def _logs(h):
+    return np.array([h.loss_global]
+                    + [e["log"] for e in h.losses.values()]
+                    + [e["log"] for e in h.losses_test.values()])
+
+
+@pytest.mark.cuda
+def test_bfgs_round_on_card_matches_cpu(cuda, tmp_path):
+    """Ten BFGS iterations after ten Adam epochs, on the card and on the
+    CPU (plain versions) from the same seed: the same variant and the same
+    history within 1e-8 relative."""
+    gpu = _bfgs_driver(tmp_path / "gpu", cuda, 10)
+    cpu = _bfgs_driver(tmp_path / "cpu", "cpu", 10)
+    assert gpu.pb.last_opt_state["kind"] == "bfgs_plain"
+    assert gpu.pb.history.iters == cpu.pb.history.iters
+    a, b = _logs(gpu.pb.history), _logs(cpu.pb.history)
+    assert np.max(np.abs(a - b) / np.abs(b)) < 1e-8
+    assert a[0, -1] < a[0, 0]
+
+
+@pytest.mark.cuda
+def test_bfgs_one_kernel_launch_per_evaluation(cuda, tmp_path):
+    """On the main path every value and gradient of the BFGS round is one
+    kernel-1 launch, and every logged evaluation one kernel-2 launch."""
+    mb.reset_launch_counts()
+    drv = _bfgs_driver(tmp_path, cuda, 10, adam_epochs=0)
+    counts = drv.pb.bfgs_counts
+    assert counts["iterations"] == 10
+    assert mb.LAUNCHES["ns_residual_bwd"] == counts["evaluations"] \
+        == counts["trials"] + 2 * 10 + 1
+    assert mb.LAUNCHES["ns_residual_fwd"] == len(drv.pb.history.iters)
+    assert mb.LAUNCHES["taylor_bundle"] == 0
+
+
+@pytest.mark.cuda
+def test_bfgs_round_repeats_bit_identical_on_card(cuda, tmp_path):
+    a = _bfgs_driver(tmp_path / "a", cuda, 10)
+    b = _bfgs_driver(tmp_path / "b", cuda, 10)
+    np.testing.assert_array_equal(_logs(a.pb.history), _logs(b.pb.history))
+    for p, q in zip(a.model.flat_params(), b.model.flat_params()):
+        assert torch.equal(p, q)
+
+
+@pytest.mark.cuda
+def test_bfgs_resume_exact_on_card(cuda, tmp_path):
+    """20 iterations straight against 10, the artifacts, and 10 more in a
+    new driver resuming the run folder: the same logs bit for bit (the
+    resumed round logs iteration 10 again as its iteration 0)."""
+    straight = _bfgs_driver(tmp_path / "a", cuda, 20)
+    first = _bfgs_driver(tmp_path / "b", cuda, 10)
+    resumed = _bfgs_driver(tmp_path / "b", cuda, 10, resume_from=first.folder)
+    hs, hr = straight.pb.history, resumed.pb.history
+    assert hr.round_names == ["keras_Adam", "jax_BFGS", "jax_BFGS"]
+    assert resumed.pb.resume_opt_state is None  # the carry was adopted
+    s = _logs(hs)[:, [i for i, r in enumerate(hs.rounds_idx) if r == 2]]
+    r = _logs(hr)
+    r2 = r[:, [i for i, k in enumerate(hr.rounds_idx) if k == 2]]
+    r3 = r[:, [i for i, k in enumerate(hr.rounds_idx) if k == 3]]
+    np.testing.assert_array_equal(r2, s[:, :2])
+    np.testing.assert_array_equal(r3, s[:, 1:])
+    for p, q in zip(straight.model.flat_params(),
+                    resumed.model.flat_params()):
+        assert torch.equal(p, q)

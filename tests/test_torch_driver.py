@@ -131,7 +131,7 @@ def test_driver_refuses_unported_options(tmp_path, monkeypatch):
     spec, opts = pf_torch.build_spec(), pf_torch.default_options()
     with pytest.raises(NotImplementedError, match="Adam round"):
         StandardNSDriver(spec, opts, base_dir=str(tmp_path), device="cpu",
-                         second_round="scipy")
+                         second_round="jax")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         StandardNSDriver(spec, opts, base_dir=str(tmp_path))
@@ -141,7 +141,7 @@ def test_minimize_strategies():
     assert _log_iters(25, 10) == [0, 10, 20, 25]
     assert _log_iters(20, 10) == [0, 10, 20]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        minimize(None, "jax", "BFGS")
+        minimize(None, "jax", "L-BFGS")
     with pytest.raises(ValueError, match="unknown strategy"):
         minimize(None, "newton")
 

@@ -39,16 +39,44 @@ def test_import_leaves_reference_stack_unloaded():
     assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
+# the functions that may import an optional module, imported there when the
+# function runs (never on the training path): file -> {function: module}
+_LAZY_IMPORTS = {
+    os.path.join("tpinn_torch", "utils.py"): {
+        "_plot_history_dict": "matplotlib"},
+    os.path.join("tpinn_torch", "viz.py"): {"_plt": "matplotlib"},
+    os.path.join("tpinn_torch", "models.py"): {
+        "save_weights": "h5py", "load_weights": "h5py"},
+}
+
+
+def _function_body(text, name):
+    """The source of the function ``name`` (to the next line indented no
+    deeper than its ``def``)."""
+    m = re.search(rf"^( *)def {name}\(", text, re.M)
+    assert m, name
+    indent = len(m.group(1))
+    end = re.compile(rf"^ {{0,{indent}}}\S", re.M).search(text, m.end())
+    return text[m.start():end.start() if end else len(text)]
+
+
 @pytest.mark.parametrize("path", [os.path.relpath(p, _REPO) for p in _port_files()])
 def test_port_file_has_no_forbidden_import(path):
-    """No port file imports JAX, optax, h5py, matplotlib or tpinn; the one
-    exception is matplotlib inside ``utils.plot_history``, imported when a
-    history is plotted (never on the training path)."""
+    """No port file imports JAX, optax, h5py, matplotlib or tpinn; the
+    exceptions are matplotlib inside ``utils._plot_history_dict`` and
+    ``viz._plt`` and h5py inside ``Model.save_weights`` /
+    ``Model.load_weights``, each imported when a figure or an HDF5 file is
+    written or read (never on the training path)."""
     with open(os.path.join(_REPO, path)) as f:
         text = f.read()
-    if path == os.path.join("tpinn_torch", "utils.py"):
-        body = text[text.index("def plot_history("):]
-        body = body[:body.index("\n    history = ")]
+    for name, module in _LAZY_IMPORTS.get(path, {}).items():
+        body = _function_body(text, name)
+        assert re.search(rf"^\s+import\s+{module}\b", body, re.M), (name,
+                                                                     module)
+        others = [m for m in ("jax", "optax", "h5py", "matplotlib", "tpinn")
+                  if m != module]
+        assert not re.search(rf"^\s*(import|from)\s+({'|'.join(others)})\b",
+                             body, re.M), name
         text = text.replace(body, "")
     assert not re.search(r"^\s*(import|from)\s+jax\b", text, re.M)
     assert not re.search(r"^\s*(import|from)\s+(optax|h5py|matplotlib)\b",

@@ -237,32 +237,40 @@ def test_unported_lm_variants_raise(shared, monkeypatch):
         minimize(pb, "jax", "LM", num_epochs=1)
 
 
-@pytest.mark.parametrize("name,exc,match", [
-    ("scipy", NotImplementedError, "item 2"),
-    ("jax-bfgs", NotImplementedError, "item 2"),
-    ("scipy-parity", NotImplementedError, "item 2"),
-    ("jax", NotImplementedError, "item 4"),
-    ("adam", NotImplementedError, "item 13"),
-    ("scipy-parityy", ValueError, "unknown second_round"),
+@pytest.mark.parametrize("name,method,exc,match", [
+    ("scipy", "L-BFGS-B", NotImplementedError, "item 4"),
+    ("scipy", "CG", NotImplementedError, "item 4"),
+    ("jax-bfgss", "BFGS", ValueError, "unknown second_round"),
+    ("jax", "BFGS", NotImplementedError, "item 4"),
+    ("adam", "BFGS", NotImplementedError, "item 13"),
+    ("scipy-parityy", "BFGS", ValueError, "unknown second_round"),
 ])
-def test_second_round_routing_table(shared, name, exc, match):
+def test_second_round_routing_table(shared, name, method, exc, match):
     jex, jd, arrays, tmp = shared
     with pytest.raises(exc, match=match):
-        _port_driver(arrays, tmp, second_round=name)
+        _port_driver(arrays, tmp, second_round=name, scipy_method=method)
     td = _port_driver(arrays, tmp, second_round="none")
     pb = OptimizationProblem(td.model, td.losses, [])
     with pytest.raises(exc, match=match):
-        run_second_round(pb, name, 3)
+        run_second_round(pb, name, 3, scipy_method=method)
     assert pb.history.round_names == []
 
 
-@pytest.mark.parametrize("name", ["lm", "jax-lm", "gn", "none", None])
+_SECOND_ROUND_NAMES = {"lm": "jax_LM", "jax-lm": "jax_LM", "gn": "jax_LM",
+                       "scipy": "jax_BFGS", "jax-bfgs": "jax_BFGS",
+                       "bfgs": "jax_BFGS", "scipy-parity": "scipy_BFGS",
+                       "scipy-host": "scipy_BFGS"}
+
+
+@pytest.mark.parametrize("name", ["lm", "jax-lm", "gn", "none", None,
+                                  "scipy", "jax-bfgs", "bfgs",
+                                  "scipy-parity", "scipy-host"])
 def test_second_round_names_that_run(shared, name):
     jex, jd, arrays, tmp = shared
     td = _port_driver(arrays, tmp, second_round=name)
     pb = td.train(epochs=0)
-    expect = ["keras_Adam"] + (["jax_LM"] if name not in ("none", None)
-                               else [])
+    expect = ["keras_Adam"] + ([_SECOND_ROUND_NAMES[name]]
+                               if name not in ("none", None) else [])
     assert pb.history.round_names == expect
     assert all(np.isfinite(pb.history.loss_global))
 

@@ -187,7 +187,7 @@ def test_scipy_round_logs_like_tpinn():
         final = float(torch.mean((model(x) - y) ** 2))
     assert h.losses["fit"]["log"][-1] == final < h.losses["fit"]["log"][0]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        minimize(pb, "jax", "BFGS")
+        minimize(pb, "jax", "L-BFGS")
 
 
 def test_vector_order_is_tpinn_ravel_order():

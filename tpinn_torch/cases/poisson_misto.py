@@ -6,9 +6,11 @@ examples/Poisson_Problem/poisson_misto.py.
      u_x = sin(y)           on the x-edges (Neumann, through the tape)
 
 The network, points and rounds of :mod:`tpinn_torch.cases.poisson`, with
-the PDE weight 1e2 and 7500 L-BFGS-B iterations by default.  Run with::
+the PDE weight 1e2 and 7500 second-round iterations by default.  Run
+with::
 
-    python -m tpinn_torch.cases.poisson_misto --out-dir OUT [--device cpu]
+    python -m tpinn_torch.cases.poisson_misto --out-dir OUT \
+        [--second-round scipy|jax-bfgs] [--device cpu]
 
 It writes ``OUT/Images/Poisson_misto_history_loss.json``.
 """

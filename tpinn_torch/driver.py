@@ -11,14 +11,21 @@
   7  losses                        → tpinn_torch.pipeline builders
   8  model                         → tpinn_torch.models.MLP
   9  training: the Adam round, then the second round (run_second_round)
+ 10  Model.json, weights, History_Loss.json, checkpoint.pkl → checkpoint
+ 11  contour figure exact vs PINN   → tpinn_torch.viz.contour_compare
+ 12  grouped loss-trend figure      → tpinn_torch.viz.plot_loss_groups
+ 13  Test_Options.txt recap         → tpinn_torch.experiment.write_recap
 
 This port covers the steady case on one device with the Adam round and the
-Levenberg–Marquardt second round (``second_round`` "lm", "jax-lm" or "gn";
-"none" for none).  The PDE losses of a plain tanh MLP go through the
+dense BFGS, host scipy and Levenberg–Marquardt second rounds
+(``run_second_round``), the run artifacts and ``train(resume_from=...)``,
+which continues a saved run exactly (the BFGS carry comes back from
+``checkpoint.pkl``).  The PDE losses of a plain tanh MLP go through the
 one-pass fused objective (on a CUDA device one launch of the residual
-kernel per Adam step), except in an LM-bound driver: LM needs the stacked
-residual vector, so it keeps the unfused ``LossMeanSquares`` PDE losses on
-one shared ``ResidualBundle`` (kernel 5 under ``TPINN_USE_PALLAS=1``).
+kernel per Adam step and per BFGS trial), except in an LM-bound driver: LM
+needs the stacked residual vector, so it keeps the unfused
+``LossMeanSquares`` PDE losses on one shared ``ResidualBundle`` (kernel 5
+under ``TPINN_USE_PALLAS=1``).
 Every training loss carries its ``point_residual`` for the LM round's
 per-point Gram.  ``from_arrays`` builds the driver from given grid, splits,
 boundary data, fit targets and initial parameters, so a run can start from
@@ -34,7 +41,8 @@ from typing import Callable, Dict, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from tpinn_torch import config, experiment
+from tpinn_torch import checkpoint as ckpt
+from tpinn_torch import config, experiment, viz
 from tpinn_torch.config import SimulationOptions
 from tpinn_torch.geometry import (
     Normalization,
@@ -43,6 +51,7 @@ from tpinn_torch.geometry import (
     rect_grid,
     split_indices,
 )
+from tpinn_torch.history import History
 from tpinn_torch.losses import LossMeanSquares, PrecomputedMeanSquares
 from tpinn_torch.models import MLP
 from tpinn_torch.optimize import minimize
@@ -61,6 +70,7 @@ from tpinn_torch.pipeline import (
     use_fused_pde_losses,
 )
 from tpinn_torch.problem import OptimizationProblem
+from tpinn_torch.utils import CheckpointCallback, HistoryPlotCallback
 
 BndValue = Union[float, Callable, None]
 
@@ -69,43 +79,57 @@ SECOND_ROUND_CHOICES = (
     "lm", "jax-lm", "gn", "adam", "none",
 )
 LM_ROUNDS = ("lm", "jax-lm", "gn")
+BFGS_ROUNDS = ("jax-bfgs", "bfgs")
+HOST_ROUNDS = ("scipy-parity", "scipy-host")
 # known second rounds that are not ported yet -> (what they run, ROADMAP.md
 # port queue 1 item)
 _UNPORTED_ROUNDS = {
-    "scipy": ("the on-device dense BFGS round", 2),
-    "jax-bfgs": ("the on-device dense BFGS round", 2),
-    "bfgs": ("the on-device dense BFGS round", 2),
-    "scipy-parity": ("the driver's routing of the host scipy round", 2),
-    "scipy-host": ("the driver's routing of the host scipy round", 2),
     "jax": ("the on-device L-BFGS round", 4),
     "adam": ("the cosine-decay Adam second round", 13),
 }
 
 
-def check_second_round(second_round: Optional[str]) -> None:
+def check_second_round(second_round: Optional[str],
+                       scipy_method: str = "BFGS") -> None:
     """Raise for a second round the port cannot run: NotImplementedError
-    naming its ROADMAP.md item for a known one, ValueError for an unknown
-    name."""
-    if second_round in (None, "none") or second_round in LM_ROUNDS:
+    naming its ROADMAP.md item for a known one ("scipy" with a method other
+    than BFGS routes to L-BFGS), ValueError for an unknown name."""
+    if second_round == "scipy" and scipy_method.upper() != "BFGS":
+        second_round = "jax"
+    if (second_round in (None, "none", "scipy") or second_round in LM_ROUNDS
+            or second_round in BFGS_ROUNDS or second_round in HOST_ROUNDS):
         return
     if second_round in _UNPORTED_ROUNDS:
         what, item = _UNPORTED_ROUNDS[second_round]
         raise NotImplementedError(
             f"second_round={second_round!r} ({what}) is not ported yet: only "
-            f"the Adam round and the LM round are (ROADMAP.md, port queue "
-            f"1, item {item})")
+            f"the Adam round and the BFGS, host scipy and LM second rounds "
+            f"are (ROADMAP.md, port queue 1, item {item})")
     raise ValueError(f"unknown second_round {second_round!r}; choices: "
                      f"{SECOND_ROUND_CHOICES}")
 
 
 def run_second_round(pb: OptimizationProblem, second_round: Optional[str],
-                     epochs: int) -> None:
-    """The one routing table for the second optimizer round: "lm",
-    "jax-lm" and "gn" run Levenberg–Marquardt for ``epochs`` iterations;
-    "none" / None run nothing; every other name raises
-    (``check_second_round``)."""
-    check_second_round(second_round)
-    if second_round in LM_ROUNDS:
+                     epochs: int, scipy_method: str = "BFGS") -> None:
+    """The one routing table for the second optimizer round, for
+    ``epochs`` iterations:
+
+    * "scipy": the resumable on-device dense BFGS (its carry checkpoints,
+      where scipy keeps its state to itself); with a ``scipy_method``
+      other than BFGS the on-device L-BFGS, which is not ported;
+    * "scipy-parity" / "scipy-host": the host scipy round with
+      ``scipy_method``;
+    * "jax-bfgs" / "bfgs": the on-device dense BFGS;
+    * "lm" / "jax-lm" / "gn": Levenberg–Marquardt;
+    * "none" / None: nothing.
+
+    Every other name raises (``check_second_round``)."""
+    check_second_round(second_round, scipy_method)
+    if second_round == "scipy" or second_round in BFGS_ROUNDS:
+        minimize(pb, "jax", "BFGS", num_epochs=epochs)
+    elif second_round in HOST_ROUNDS:
+        minimize(pb, "scipy", scipy_method, num_epochs=epochs)
+    elif second_round in LM_ROUNDS:
         minimize(pb, "jax", "LM", num_epochs=epochs)
 
 
@@ -146,6 +170,7 @@ class StandardNSDriver:
         save_results: bool = True,
         seed: int = 0,
         second_round: str = "none",
+        scipy_method: str = "BFGS",
         adam_epochs: int = 100,
         adam_lr: float = 1e-2,
         device=None,
@@ -156,13 +181,14 @@ class StandardNSDriver:
             raise NotImplementedError(
                 "the unsteady driver path is not ported yet (ROADMAP.md, "
                 "port queue 1)")
-        check_second_round(second_round)
+        check_second_round(second_round, scipy_method)
         self.spec = spec
         self.opts = opts
         self.base_dir = base_dir
         self.save_results = save_results
         self.seed = seed
         self.second_round = second_round
+        self.scipy_method = scipy_method
         self.adam_epochs = adam_epochs
         self.adam_lr = adam_lr
         self.device = config.resolve_device(device)
@@ -384,20 +410,127 @@ class StandardNSDriver:
         return losses, losses_test
 
     # ------------------------------------------------------------------ train
-    def train(self, epochs: Optional[int] = None) -> OptimizationProblem:
+    def train(self, epochs: Optional[int] = None, callbacks: bool = True,
+              skip_training: bool = False,
+              resume_from: Optional[str] = None) -> OptimizationProblem:
         """The Adam round (``adam_epochs`` full-batch steps at ``adam_lr``),
         then the second round for ``epochs`` iterations (default
-        ``opts.epochs``), then History_Loss.json in the run folder."""
+        ``opts.epochs``), then History_Loss.json in the run folder.
+
+        ``callbacks`` flush the history (and its plot, where matplotlib
+        exists) and ``checkpoint.pkl`` into the run folder every 100
+        iterations and at the end of every round.  ``resume_from`` names a
+        saved run folder: its weights and history are loaded, then
+        ``checkpoint.pkl`` where it is at least as new as the weights (its
+        parameters, and its optimizer state for the second round of the
+        same kind to adopt); the Adam round is skipped and the second round
+        appends to the loaded history.  ``skip_training`` returns after
+        loading."""
         epochs = self.opts.epochs if epochs is None else epochs
-        self.folder = experiment.prepare_folder(self.base_dir,
-                                                self.save_results)
+        if resume_from is not None:
+            self.folder = resume_from
+        else:
+            self.folder = experiment.prepare_folder(self.base_dir,
+                                                    self.save_results)
         pb = OptimizationProblem(self.model, self.losses, self.losses_test)
+        if resume_from is not None:
+            self._resume(pb, resume_from)
+        if callbacks:
+            pb.callbacks.append(HistoryPlotCallback(
+                frequency=100, gui=False,
+                filename=os.path.join(self.folder, "Loss_Trend_Full.png"),
+                filename_history=os.path.join(self.folder,
+                                              "History_Loss.json")))
+            pb.callbacks.append(CheckpointCallback(
+                os.path.join(self.folder, "checkpoint.pkl"), frequency=100))
         self.pb = pb
-        minimize(pb, "keras", Adam(learning_rate=self.adam_lr),
-                 num_epochs=self.adam_epochs)
-        run_second_round(pb, self.second_round, epochs)
+        if skip_training:
+            return pb
+        if resume_from is None:
+            minimize(pb, "keras", Adam(learning_rate=self.adam_lr),
+                     num_epochs=self.adam_epochs)
+        run_second_round(pb, self.second_round, epochs,
+                         scipy_method=self.scipy_method)
         pb.save_history(os.path.join(self.folder, "History_Loss.json"))
         return pb
+
+    def _resume(self, pb: OptimizationProblem, folder: str) -> None:
+        weights = ckpt.weights_file(folder)
+        if weights is None:
+            raise FileNotFoundError(f"{folder} holds no Weights.h5 or "
+                                    "Weights.npz")
+        self.model.load_weights(weights)
+        path = os.path.join(folder, "checkpoint.pkl")
+        # a killed round leaves checkpoint.pkl ahead of the final weights;
+        # save_experiment writes it just after them, possibly within one
+        # tick of the file system's clock, so an equal time counts as newer
+        if (os.path.exists(path)
+                and os.path.getmtime(path) >= os.path.getmtime(weights)):
+            state = ckpt.load_checkpoint(path)
+            self.model.set_params([
+                {k: torch.as_tensor(np.asarray(p[k]), dtype=self.dtype)
+                 for k in ("kernel", "bias")} for p in state["params"]])
+            pb.resume_opt_state = state.get("opt_state")
+        hist = os.path.join(folder, "History_Loss.json")
+        if os.path.exists(hist):
+            pb.history = History.load(hist)
+            pb.history.register_losses(self.losses, self.losses_test)
+
+    # ----------------------------------------------------------------- output
+    def predict_grid(self, n: int = 100):
+        """The model on an n×n regular grid of the spatial extents,
+        de-normalized: (gx, gy, u, v, p) as numpy arrays."""
+        (lx, ux), (ly, uy) = self.spec.extents
+        gx, gy = np.meshgrid(np.linspace(lx, ux, n), np.linspace(ly, uy, n))
+        pts = np.stack([gx.reshape(-1), gy.reshape(-1)], axis=-1)
+        with torch.no_grad():
+            out = self.model(pts).cpu().numpy()
+        u = out[:, 0].reshape(gx.shape) * self.norm.norm_vel
+        v = out[:, 1].reshape(gx.shape) * self.norm.norm_vel
+        p = out[:, 2].reshape(gx.shape) * self.norm.norm_pre
+        return gx, gy, u, v, p
+
+    def save_artifacts(self, loss_groups: Optional[Dict[str, list]] = None,
+                       exact_grids=None) -> None:
+        """Stages 10-13: the experiment (Model.json, weights, history,
+        checkpoint), the contour figure, the grouped loss plot and the
+        recap.  The figures need matplotlib."""
+        folder = self.folder
+        if folder is None or self.pb is None:
+            raise RuntimeError("save_artifacts: call train() first")
+        self.save_experiment()
+        gx, gy, u, v, p = self.predict_grid()
+        if exact_grids is None and self.spec.exact is not None:
+            pts = torch.as_tensor(
+                np.stack([gx.reshape(-1), gy.reshape(-1)], axis=-1),
+                dtype=self.dtype)
+            exact_grids = tuple(
+                torch.as_tensor(f(pts)).cpu().numpy().reshape(gx.shape)
+                for f in self.spec.exact)
+        if exact_grids is not None:
+            viz.contour_compare(gx, gy, exact_grids, (u, v, p),
+                                problem_name=self.spec.name,
+                                filename=os.path.join(folder, "Graphic.jpg"))
+        if loss_groups:
+            viz.plot_loss_groups(
+                self.pb.history.to_dict(), loss_groups,
+                filename=os.path.join(folder, "Loss_Trend_Reduced.png"))
+        self.write_recap()
+
+    def save_experiment(self) -> str:
+        """Stage 10 alone: Model.json, the weights, History_Loss.json and
+        checkpoint.pkl (with the last round's optimizer state) in the run
+        folder; returns the weights file's name."""
+        return ckpt.save_experiment(self.folder, self.model,
+                                    self.pb.history,
+                                    opt_state=self.pb.last_opt_state)
+
+    def write_recap(self) -> str:
+        """Stage 13 alone: Test_Options.txt in the run folder."""
+        return experiment.write_recap(
+            self.folder, self.spec.name, self.opts.epochs, self.opts.n_pts,
+            noise_fit=self.opts.noise_fit, noise_bnd=self.opts.noise_bnd,
+            echo=False)
 
     def final_test_losses(self) -> Dict[str, float]:
         h = self.pb.history

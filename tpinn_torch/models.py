@@ -6,10 +6,16 @@ a linear head.  Parameters keep the JAX package's layout, a list of
 unchanged (:mod:`tpinn_torch.bridge`).  ``Model.apply(params, x)`` is the
 pure forward used by every loss; the module's own parameters are updated in
 place by the optimizer.
+
+``to_json`` / ``save_weights`` write the reference artifacts (a Keras
+Sequential architecture JSON, and the weights as Keras-layout HDF5 or as an
+npz of ``kernel_i`` / ``bias_i``); ``model_from_json`` and ``load_weights``
+read them, the JAX package's files included.
 """
 
 from __future__ import annotations
 
+import json
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -167,11 +173,119 @@ class Model(nn.Module):
         x = torch.as_tensor(x, dtype=self.dtype, device=self.device)
         return self.apply(self.params, x)
 
+    # -- Keras-layout artifacts ----------------------------------------------
+    def to_json(self) -> str:
+        """The Keras Sequential architecture JSON (the reference's
+        Model.json) with ``"backend": "torch"``."""
+        sizes = self.layer_sizes
+        n_dense = len(sizes) - 1
+        dtype = str(self.dtype).split(".")[-1]
+        layers = []
+        for i, units in enumerate(sizes[1:]):
+            cfg = {
+                "class_name": "Dense",
+                "config": {
+                    "name": f"dense_{i}",
+                    "trainable": True,
+                    "dtype": dtype,
+                    "units": int(units),
+                    "activation": (self.activation_name if i < n_dense - 1
+                                   else "linear"),
+                    "use_bias": True,
+                },
+            }
+            if i == 0:
+                cfg["config"]["batch_input_shape"] = [None, int(sizes[0])]
+            layers.append(cfg)
+        return json.dumps({
+            "class_name": "Sequential",
+            "config": {"name": "sequential", "layers": layers},
+            "framework": "tpinn",
+            "backend": "torch",
+        })
+
+    def save_weights(self, path) -> None:
+        """Write the weights: ``.h5`` / ``.hdf5`` in the Keras layout
+        (h5py, imported here), any other name as an npz."""
+        path = str(path)
+        arrays = [{k: p[k].detach().cpu().numpy() for k in ("kernel", "bias")}
+                  for p in self.params]
+        if path.endswith((".h5", ".hdf5")):
+            import h5py
+
+            with h5py.File(path, "w") as f:
+                names = [f"dense_{i}" for i in range(len(arrays))]
+                f.attrs["layer_names"] = [n.encode() for n in names]
+                f.attrs["backend"] = b"torch"
+                for name, layer in zip(names, arrays):
+                    g = f.create_group(name).create_group(name)
+                    f[name].attrs["weight_names"] = [
+                        f"{name}/kernel:0".encode(), f"{name}/bias:0".encode()]
+                    g.create_dataset("kernel:0", data=layer["kernel"])
+                    g.create_dataset("bias:0", data=layer["bias"])
+        else:
+            flat = {}
+            for i, layer in enumerate(arrays):
+                flat[f"kernel_{i}"] = layer["kernel"]
+                flat[f"bias_{i}"] = layer["bias"]
+            np.savez(path, **flat)
+
+    def load_weights(self, path) -> None:
+        """Read weights written by ``save_weights`` (of either package) into
+        the model, in place: ``.h5`` / ``.hdf5`` through h5py (imported
+        here), any other name as an npz (``.npz`` appended when missing)."""
+        path = str(path)
+        params = []
+        if path.endswith((".h5", ".hdf5")):
+            import h5py
+
+            with h5py.File(path, "r") as f:
+                for name in f.attrs["layer_names"]:
+                    name = name.decode() if isinstance(name, bytes) else name
+                    grp = f[name]
+                    if name in grp:
+                        grp = grp[name]
+                    params.append({"kernel": np.array(grp["kernel:0"]),
+                                   "bias": np.array(grp["bias:0"])})
+        else:
+            with np.load(path if path.endswith(".npz")
+                         else path + ".npz") as data:
+                i = 0
+                while f"kernel_{i}" in data:
+                    params.append({"kernel": data[f"kernel_{i}"],
+                                   "bias": data[f"bias_{i}"]})
+                    i += 1
+        self.set_params([{k: torch.as_tensor(p[k], dtype=self.dtype)
+                          for k in ("kernel", "bias")} for p in params])
+
     def is_plain_tanh(self) -> bool:
         """True for a plain tanh MLP, the only model the closed-form Taylor
         propagation and the CUDA residual kernels take."""
         return (type(self).apply is Model.apply
                 and self.activation_name == "tanh")
+
+
+def model_from_json(json_str: str, seed: int = 0, device=None,
+                    dtype: Optional[torch.dtype] = None) -> Model:
+    """A Model of the architecture in a ``to_json`` (or Keras Sequential)
+    string of either package, with fresh weights from ``seed``; the dtype
+    is the JSON's unless given."""
+    layers_cfg = json.loads(json_str)["config"]["layers"]
+    sizes, activation = [], "tanh"
+    for i, layer in enumerate(layers_cfg):
+        cfg = layer["config"]
+        if i == 0 and cfg.get("batch_input_shape"):
+            sizes.append(int(cfg["batch_input_shape"][1]))
+        sizes.append(int(cfg["units"]))
+        if cfg.get("activation") not in (None, "linear"):
+            activation = cfg["activation"]
+    if dtype is None:
+        name = layers_cfg[0]["config"].get("dtype") or "float32"
+        dtype = getattr(torch, name, None)
+        if not isinstance(dtype, torch.dtype):
+            dtype = config.get_dtype()
+    return Model(sizes, activation=activation, dtype=dtype, seed=seed,
+                 device=device)
 
 
 def MLP(dim_in: int, dim_out: int, width: int = 32, depth: int = 3,

@@ -1,15 +1,18 @@
-"""OptimizationProblem: the model, its training and test losses, and the
-history they are logged into (nisaba's ``ns.OptimizationProblem``).
-Callbacks (history plots, checkpoints) are not ported yet.
+"""OptimizationProblem: the model, its training and test losses, the
+history they are logged into and the callbacks fired at log points
+(nisaba's ``ns.OptimizationProblem``).
 
 The model is given as ``model.variables``, as nisaba's cases pass it, or as
-the model itself.
+the model itself.  Two flat views of the parameters serve the optimizers,
+both in the JAX package's ``ravel_pytree`` order: a float64 host vector for
+the scipy round, and a device tensor for the on-device rounds (no host
+copy per evaluation).
 """
 
 from __future__ import annotations
 
 import math
-from typing import List, Sequence, Tuple, Union
+from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -25,6 +28,7 @@ class OptimizationProblem:
         variables: Union[VariablesHandle, Model],
         losses: Sequence[Loss],
         losses_test: Union[Loss, Sequence[Loss], None] = None,
+        callbacks: Optional[list] = None,
     ):
         if isinstance(variables, VariablesHandle):
             variables = variables.model
@@ -38,8 +42,18 @@ class OptimizationProblem:
         if isinstance(losses_test, Loss):
             losses_test = [losses_test]
         self.losses_test: List[Loss] = list(losses_test)
+        self.callbacks: list = list(callbacks) if callbacks else []
         self.history = History()
         self.history.register_losses(self.losses, self.losses_test)
+        # the live optimizer state of the current or last round, published
+        # at every log point so that a checkpoint can resume it exactly
+        # ({"kind": "lm" | "bfgs_*", ...}; None after a scipy round, whose
+        # state scipy keeps); a driver resuming a run folder puts the
+        # checkpointed state on ``resume_opt_state`` for the round of the
+        # same kind to adopt
+        self.last_opt_state = None
+        self.last_round_name: Optional[str] = None
+        self.resume_opt_state = None
 
     @property
     def params(self) -> List[torch.Tensor]:
@@ -94,6 +108,55 @@ class OptimizationProblem:
             raise ValueError(f"vector of {src.numel()} values for {off} "
                              "parameters")
 
+    # -- flat device vector for the on-device rounds ------------------------
+    def get_flat(self) -> torch.Tensor:
+        """The parameters as one tensor on their device, in ravel order."""
+        return torch.cat([t.detach().reshape(-1) for t in self._vector_order()])
+
+    @torch.no_grad()
+    def set_flat(self, theta: torch.Tensor) -> None:
+        """Copy a flat device tensor into the parameters, in place (no host
+        copy).  Every ``copy_`` bumps the parameter's version counter, which
+        keys the fused objectives' memos, so the next evaluation recomputes
+        even where ``theta`` holds the values the parameters already had."""
+        off = 0
+        for t in self._vector_order():
+            n = t.numel()
+            t.copy_(theta[off:off + n].view_as(t))
+            off += n
+        if off != theta.numel():
+            raise ValueError(f"vector of {theta.numel()} values for {off} "
+                             "parameters")
+
+    def flat_value_and_grad(self, theta: torch.Tensor):
+        """(loss, flat gradient) at ``theta`` as device tensors; the model
+        keeps ``theta``.  A parameter the loss does not read gets a zero
+        gradient."""
+        self.set_flat(theta)
+        order = self._vector_order()
+        loss = self.loss_fn()
+        grads = torch.autograd.grad(loss, order, materialize_grads=True)
+        return loss.detach(), torch.cat([g.reshape(-1) for g in grads])
+
+    def _residual_vector(self) -> torch.Tensor:
+        parts = []
+        for loss in self.losses:
+            r = (loss.fn() / loss.normalization).reshape(-1)
+            parts.append(math.sqrt(loss.weight / r.numel()) * r)
+        return torch.cat(parts)
+
+    def residuals_and_grad(self, theta: torch.Tensor):
+        """(R, 2·JᵀR) at ``theta`` through one backward: the stacked
+        residual vector of ``residuals_at`` (||R||² is the global loss) and
+        the gradient of ||R||², both on the device; the model keeps
+        ``theta``."""
+        self.set_flat(theta)
+        order = self._vector_order()
+        R = self._residual_vector()
+        grads = torch.autograd.grad(R, order, grad_outputs=2.0 * R.detach(),
+                                    materialize_grads=True)
+        return R.detach(), torch.cat([g.reshape(-1) for g in grads])
+
     def unravel(self, theta: torch.Tensor) -> List[dict]:
         """A flat vector in ``ravel_pytree`` order as the model's
         list-of-dicts layout (reshaped slices, so the result is a function
@@ -118,11 +181,7 @@ class OptimizationProblem:
         LossMeanSquares, and contributes sqrt(weight/N)·(r/normalization),
         so ||R||² equals the global loss.  R stays on the model's device."""
         self.set_vector(vec)
-        parts = []
-        for loss in self.losses:
-            r = (loss.fn() / loss.normalization).reshape(-1)
-            parts.append(math.sqrt(loss.weight / r.numel()) * r)
-        return torch.cat(parts)
+        return self._residual_vector()
 
     def value_and_grad_vector(self, vec: np.ndarray) -> Tuple[float, np.ndarray]:
         """(loss, gradient) at the parameters ``vec`` as a float and a
@@ -139,3 +198,7 @@ class OptimizationProblem:
 
     def save_history(self, path) -> None:
         self.history.save(path)
+
+    def fire_callbacks(self, iteration: int, force: bool = False) -> None:
+        for cb in self.callbacks:
+            cb(self, iteration, force=force)
