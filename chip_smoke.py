@@ -100,7 +100,29 @@ exits non-zero:
    Weights.npz where h5py is missing, History_Loss.json, checkpoint.pkl,
    Test_Options.txt), and 10 more in a new driver resuming it, every log
    bit-identical; ``checkpoint.load_experiment`` reproduces the model's
-   outputs bit for bit.
+   outputs bit for bit;
+19. the slice: the Poiseuille main path with the on-device L-BFGS round,
+   Adam 100 epochs then L-BFGS ("jax", 100 iterations), float64, through
+   tpinn_torch.cases.poiseuille_flow.main, with the launch counts read
+   around it (one kernel-1 launch per line-search trial plus one for the
+   first iteration, one kernel-2 launch per logged evaluation), held
+   against the same run on the CPU (every log through L-BFGS iteration 20
+   at 1e-8, the final global loss at 5 %); a repeat from the same state
+   bit-identical, with its host synchronisations counted; the iteration
+   split (direction, that is the two-loop recursion, and the line search's
+   evaluations) from a timed repeat, also bit-identical; the ms per
+   iteration beside phase 15's dense BFGS;
+20. the slice at full width: colliding flow at its reference options
+   (1000 PDE points, 100 per edge, 5 velocity and 1 pressure fitting
+   points, 10,000 test points, 2-32-32-32-3, float64, NS kernels at
+   convection 1/40) through tpinn_torch.cases.colliding_flow.main: Adam
+   100 then the default "scipy" round (the dense BFGS, 20 iterations), on
+   the card against the CPU (the history at 1e-8, the final global loss at
+   5 %), with the launch counts read around it and the run folder written;
+   then the Poisson case's L-BFGS branch (Adam 100 + L-BFGS 20, kernels
+   3/4, one kernel-3 launch per evaluation) against the CPU at 1e-8;
+21. the cosine-decay Adam second round ("adam", 100 epochs) on Poiseuille,
+   card against CPU at 1e-8.
 
 The line before the last is the kernels' JSON record (each kernel's
 launches on every path that runs it, ``launches`` being its slice's main
@@ -144,6 +166,14 @@ SCIPY_BFGS_ITERS = 20
 F32_BFGS_ITERS = 20
 PAIRED_ITERS = 20
 RESUME_ITERS = 20
+# the L-BFGS round (phase 19): 100 iterations, held like phase 15's round
+LBFGS_ITERS = 100
+LBFGS_HEAD_ITERS = 20
+# colliding flow's dense BFGS round and Poisson's L-BFGS round (phase 20)
+COLLIDING_ITERS = 20
+POISSON_LBFGS_ITERS = 20
+# the cosine-decay Adam second round (phase 21)
+COSINE_EPOCHS = 100
 
 
 def phase(name):
@@ -592,7 +622,8 @@ def main():
             mb.reset_launch_counts()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            drv = poiseuille_flow.main(td, adam_epochs=100, device="cuda")
+            drv = poiseuille_flow.main(td, adam_epochs=100, device="cuda",
+                                       second_round="none")
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             launches = dict(mb.LAUNCHES)
@@ -610,7 +641,8 @@ def main():
         if hist.iters != list(range(0, 101, 10)):
             raise AssertionError(f"unexpected log iterations {hist.iters}")
         with tempfile.TemporaryDirectory() as td:
-            ref = poiseuille_flow.main(td, adam_epochs=100, device="cpu")
+            ref = poiseuille_flow.main(td, adam_epochs=100, device="cpu",
+                                       second_round="none")
         a = np.array(hist.loss_global)
         b = np.array(ref.pb.history.loss_global)
         dev_rel = float(np.max(np.abs(a - b) / np.abs(b)))
@@ -1513,13 +1545,224 @@ def main():
                                  f"outputs equal {same_out}")
         record["resume"] = {"dev": d_resume, "files": written}
 
+    with phase("19 the slice: Poiseuille Adam 100 + L-BFGS 100, float64"):
+        def lbfgs_case(td, device, second_round="jax", iters=LBFGS_ITERS):
+            return poiseuille_flow.main(td, adam_epochs=100, device=device,
+                                        second_round=second_round,
+                                        epochs=iters)
+
+        with tempfile.TemporaryDirectory() as td:
+            mb.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            lbfgs_drv = lbfgs_case(td, "cuda")
+            torch.cuda.synchronize()
+            lbfgs_wall = time.perf_counter() - t0
+            lbfgs_launches = dict(mb.LAUNCHES)
+        pb = lbfgs_drv.pb
+        h = pb.history
+        counts = pb.lbfgs_counts
+        n_it = counts["iterations"]
+        print(f"  launches on the main path: {lbfgs_launches}; wall "
+              f"{lbfgs_wall:.2f} s; {counts}")
+        if h.round_names != ["keras_Adam", "jax_L-BFGS"] or n_it != LBFGS_ITERS:
+            raise AssertionError(f"rounds {h.round_names}, {n_it} iterations")
+        if not np.isfinite(logs(h)).all():
+            raise AssertionError("non-finite logged loss")
+        i_lb = [i for i, r in enumerate(h.rounds_idx) if r == 2]
+        if not h.loss_global[i_lb[-1]] < h.loss_global[i_lb[0]]:
+            raise AssertionError("L-BFGS did not reduce the loss")
+        k1 = lbfgs_launches["ns_residual_bwd"] - 100
+        if (k1 != counts["evaluations"] or k1 != counts["trials"] + 1
+                or lbfgs_launches["ns_residual_fwd"] != len(h.iters)
+                or lbfgs_launches["taylor_bundle"]
+                or lbfgs_launches["poisson_residual_bwd"]):
+            raise AssertionError(f"main path launches {lbfgs_launches} for "
+                                 f"{counts}")
+        lb_trials = counts["trials"] / n_it
+        lbfgs_ms = 1e3 * h.wall_times[1] / n_it
+        print(f"  per L-BFGS iteration: {k1 / n_it:.3f} kernel-1 launches "
+              f"(trials {lb_trials:.3f}, + 1 on iteration 0), "
+              f"{lbfgs_ms:.2f} ms (round wall / iterations, logging and "
+              f"checkpoints included); dense BFGS (phase 15) {bfgs_ms:.2f} "
+              f"ms")
+        with tempfile.TemporaryDirectory() as td:
+            ref = lbfgs_case(td, "cpu")
+        hr = ref.pb.history
+        if hr.iters != h.iters:
+            raise AssertionError(f"card and CPU log at other iterations "
+                                 f"({h.iters} / {hr.iters})")
+        head = [i for i, r in enumerate(hr.rounds_idx)
+                if r == 1 or hr.iter_round[i] <= LBFGS_HEAD_ITERS]
+        lb_head = rel_dev(hr, h, head)
+        lb_all = rel_dev(hr, h, list(range(len(h.iters))))
+        lb_final = abs(h.loss_global[-1] / hr.loss_global[-1] - 1.0)
+        print(f"  loss_global {h.loss_global[i_lb[0]]:.6e} -> "
+              f"{h.loss_global[-1]:.6e}; against the plain versions on the "
+              f"CPU: Adam + L-BFGS iterations 0-{LBFGS_HEAD_ITERS} "
+              f"{lb_head:.2e}, every log {lb_all:.2e}, final global loss "
+              f"{lb_final:.2e} apart (CPU {hr.loss_global[-1]:.6e}, "
+              f"{ref.pb.lbfgs_counts})")
+        if lb_head > HISTORY_BAR or lb_final > FINAL_LOSS_BAR:
+            raise AssertionError("card and CPU L-BFGS histories disagree")
+        with tempfile.TemporaryDirectory() as td, \
+                warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            drv_b = lbfgs_case(td, "cuda", second_round="none")
+            drv_b.pb.callbacks.clear()
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                minimize(drv_b.pb, "jax", "L-BFGS", num_epochs=LBFGS_ITERS)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+        lb_syncs = sum("synchroniz" in str(w.message) for w in caught)
+        same = np.array_equal(logs(drv_b.pb.history), logs(h))
+        print(f"  repeat from the same state bit-identical: {same}; host "
+              f"synchronisations in the round (sync debug mode) {lb_syncs}, "
+              f"{lb_syncs / n_it:.2f} per iteration (line-search flags "
+              f"{lb_trials:.2f}, logged evaluations {len(i_lb) / n_it:.2f})")
+        if not same:
+            dev_b = np.max(np.abs(logs(drv_b.pb.history) - logs(h)))
+            raise AssertionError(f"repeat differs by {dev_b:.3e}")
+        with tempfile.TemporaryDirectory() as td:
+            drv_c = lbfgs_case(td, "cuda", second_round="none")
+            drv_c.pb.callbacks.clear()
+            minimize(drv_c.pb, "jax", "L-BFGS", num_epochs=LBFGS_ITERS,
+                     timed=True)
+        iter_times = drv_c.pb.lbfgs_times[1:]
+        lb_split = {k: 1e3 * float(np.median([t[k] for t in iter_times]))
+                    for k in ("direction", "evaluations")}
+        lb_split["round wall per iteration"] = (
+            1e3 * drv_c.pb.history.wall_times[1] / n_it)
+        timed_same = np.array_equal(logs(drv_c.pb.history), logs(h))
+        print("  iteration split (device synchronised at each boundary, "
+              "median of iterations 2-" + str(LBFGS_ITERS) + "), ms: "
+              + ", ".join(f"{k} {v:.3f}" for k, v in lb_split.items())
+              + f"; timed round bit-identical too: {timed_same}")
+        if not timed_same:
+            raise AssertionError("the timed round differs")
+        record["lbfgs_slice"] = {
+            "launches": lbfgs_launches, "counts": counts,
+            "wall_s": lbfgs_wall, "ms_per_iteration": lbfgs_ms,
+            "bfgs_ms_per_iteration": bfgs_ms,
+            "trials_per_iteration": lb_trials,
+            "kernel1_per_iteration": k1 / n_it,
+            "syncs_per_iteration": lb_syncs / n_it, "split_ms": lb_split,
+            "dev_head": lb_head, "dev_all": lb_all,
+            "final_loss_rel": lb_final, "loss_first": h.loss_global[i_lb[0]],
+            "loss_last": h.loss_global[-1]}
+
+    with phase("20 the slice at full width: colliding flow, Adam 100 + "
+               "BFGS 20; Poisson L-BFGS"):
+        from tpinn_torch.cases import colliding_flow
+
+        cf = {}
+        for device in ("cuda", "cpu"):
+            with tempfile.TemporaryDirectory() as td:
+                mb.reset_launch_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                drv = colliding_flow.main(td, adam_epochs=100, device=device,
+                                          epochs=COLLIDING_ITERS)
+                torch.cuda.synchronize()
+                cf[device] = (drv, dict(mb.LAUNCHES),
+                              time.perf_counter() - t0,
+                              sorted(os.listdir(drv.folder)))
+        (cf_gpu, cf_launches, cf_wall, cf_files), (cf_cpu, _, cf_cpu_wall,
+                                                  _) = cf["cuda"], cf["cpu"]
+        hc, hcr = cf_gpu.pb.history, cf_cpu.pb.history
+        cc = cf_gpu.pb.bfgs_counts
+        names = [l.name for l in cf_gpu.losses]
+        d_cf = rel_dev(hcr, hc, list(range(len(hc.iters))))
+        d_cf_final = abs(hc.loss_global[-1] / hcr.loss_global[-1] - 1.0)
+        cf_ms = 1e3 * hc.wall_times[1] / cc["iterations"]
+        print(f"  losses {names}; launches {cf_launches}; {cc}; variant "
+              f"{cf_gpu.pb.last_opt_state['kind']}; loss_global "
+              f"{hc.loss_global[0]:.6e} -> {hc.loss_global[-1]:.6e}; "
+              f"against the CPU: every log {d_cf:.2e}, final global loss "
+              f"{d_cf_final:.2e} apart; BFGS {cf_ms:.2f} ms per iteration; "
+              f"wall {cf_wall:.2f} s (CPU {cf_cpu_wall:.2f} s); final test "
+              f"losses {cf_gpu.final_test_losses()}; files {cf_files}")
+        if (hc.round_names != ["keras_Adam", "jax_BFGS"]
+                or names[-1] != "Fit_p" or hc.iters != hcr.iters
+                or cf_launches["ns_residual_bwd"] != 100 + cc["evaluations"]
+                or cf_launches["ns_residual_fwd"] != len(hc.iters)
+                or not np.isfinite(logs(hc)).all()
+                or not hc.loss_global[-1] < hc.loss_global[0]
+                or d_cf > HISTORY_BAR or d_cf_final > FINAL_LOSS_BAR):
+            raise AssertionError("colliding flow round failed")
+        if not {"History_Loss.json", "Model.json", "Test_Options.txt",
+                "checkpoint.pkl"} <= set(cf_files):
+            raise AssertionError(f"colliding flow artifacts {cf_files}")
+        runs = {}
+        for device in ("cuda", "cpu"):
+            with tempfile.TemporaryDirectory() as td:
+                mb.reset_launch_counts()
+                runs[device] = (poisson.main(POISSON_LBFGS_ITERS, out_dir=td,
+                                             device=device,
+                                             second_round="jax")[0],
+                                dict(mb.LAUNCHES))
+        (pl_gpu, p_lbfgs_launches), (pl_cpu, _) = runs["cuda"], runs["cpu"]
+        hpl = pl_gpu.history
+        d_pl = rel_dev(pl_cpu.history, hpl, list(range(len(hpl.iters))))
+        plc = pl_gpu.lbfgs_counts
+        pl_ms = 1e3 * hpl.wall_times[1] / POISSON_LBFGS_ITERS
+        print(f"  Poisson L-BFGS: launches {p_lbfgs_launches}; {plc}; "
+              f"loss_global {hpl.loss_global[0]:.6e} -> "
+              f"{hpl.loss_global[-1]:.6e}; against the CPU: max rel "
+              f"deviation of every log {d_pl:.2e}; {pl_ms:.2f} ms per "
+              f"iteration")
+        if (p_lbfgs_launches["poisson_residual_bwd"] != 100 + plc["evaluations"]
+                or p_lbfgs_launches["poisson_residual_fwd"] != len(hpl.iters)
+                or hpl.round_names != ["keras_Adam", "jax_L-BFGS"]
+                or d_pl > HISTORY_BAR):
+            raise AssertionError("Poisson L-BFGS round failed")
+        record["colliding"] = {
+            "launches": cf_launches, "counts": cc, "dev": d_cf,
+            "final_loss_rel": d_cf_final, "ms_per_iteration": cf_ms,
+            "wall_s": cf_wall, "cpu_wall_s": cf_cpu_wall,
+            "test_losses": cf_gpu.final_test_losses(), "files": cf_files}
+        record["poisson_lbfgs"] = {"launches": p_lbfgs_launches,
+                                   "counts": plc, "dev": d_pl,
+                                   "ms_per_iteration": pl_ms}
+
+    with phase("21 the cosine-decay Adam second round, 100 epochs"):
+        cos = {}
+        for device in ("cuda", "cpu"):
+            with tempfile.TemporaryDirectory() as td:
+                mb.reset_launch_counts()
+                cos[device] = (poiseuille_flow.main(
+                    td, adam_epochs=0, device=device, second_round="adam",
+                    epochs=COSINE_EPOCHS), dict(mb.LAUNCHES))
+        (cos_gpu, cos_launches), (cos_cpu, _) = cos["cuda"], cos["cpu"]
+        hk = cos_gpu.pb.history
+        d_cos = rel_dev(cos_cpu.pb.history, hk, list(range(len(hk.iters))))
+        cos_ms = 1e3 * hk.wall_times[1] / COSINE_EPOCHS
+        print(f"  rounds {hk.round_names}; launches {cos_launches}; "
+              f"loss_global {hk.loss_global[0]:.6e} -> "
+              f"{hk.loss_global[-1]:.6e}; against the CPU: max rel "
+              f"deviation of every log {d_cos:.2e}; {cos_ms:.2f} ms per "
+              f"epoch (round wall, logging included)")
+        if (hk.round_names != ["keras_Adam", "keras_Adam"]
+                or cos_launches["ns_residual_bwd"] != COSINE_EPOCHS
+                or d_cos > HISTORY_BAR
+                or not hk.loss_global[-1] < hk.loss_global[0]):
+            raise AssertionError("cosine Adam round failed")
+        record["cosine_adam"] = {"launches": cos_launches, "dev": d_cos,
+                                 "ms_per_epoch": cos_ms}
+
     # launches on each path that runs the kernel, each read around its run;
     # "launches" is the count on the main path of the kernel's slice
     paths = {"4 Poiseuille Adam": launches,
              "8 Poisson Adam + L-BFGS-B": p_launches,
              "11 Poiseuille LM (opt-in)": lm_launches,
              "15 Poiseuille Adam + BFGS": bfgs_launches,
-             "17 Poisson Adam + BFGS": p_bfgs_launches}
+             "17 Poisson Adam + BFGS": p_bfgs_launches,
+             "19 Poiseuille Adam + L-BFGS": lbfgs_launches,
+             "20 colliding flow Adam + BFGS": cf_launches,
+             "20 Poisson Adam + L-BFGS": p_lbfgs_launches,
+             "21 Poiseuille cosine Adam": cos_launches}
 
     def kernel_row(name, key, route_src, replaces, main, row, n):
         d_ms, per_call, _ = dev_t[(name, n)]

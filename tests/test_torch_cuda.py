@@ -6,7 +6,9 @@ net and streamed weights), bit-identical repeats, the forward MSEs equal to
 the backward's, float32 against float64, one device kernel per call, and a
 short round of each slice on the card against the CPU; the dense BFGS
 round on the card (against the CPU, one kernel-1 launch per evaluation,
-bit-identical repeats, and an exact resume from its run folder).
+bit-identical repeats, and an exact resume from its run folder); the
+L-BFGS round on the card (against the CPU, a bit-identical repeat, one
+kernel-1 launch per line-search trial).
 
 This file imports neither JAX nor tpinn, so it runs on the machine with the
 card, where those are not installed; the repo's conftest files import JAX,
@@ -99,11 +101,11 @@ def test_poiseuille_round_on_card_matches_cpu(cuda, tmp_path):
 
     mb.reset_launch_counts()
     gpu = poiseuille_flow.main(str(tmp_path / "gpu"), adam_epochs=10,
-                               device=cuda)
+                               device=cuda, second_round="none")
     assert mb.LAUNCHES["ns_residual_bwd"] == 10
     assert mb.LAUNCHES["ns_residual_fwd"] == 2
     cpu = poiseuille_flow.main(str(tmp_path / "cpu"), adam_epochs=10,
-                               device="cpu")
+                               device="cpu", second_round="none")
     a = np.array(gpu.pb.history.loss_global)
     b = np.array(cpu.pb.history.loss_global)
     np.testing.assert_allclose(a, b, rtol=1e-10)
@@ -501,3 +503,51 @@ def test_bfgs_resume_exact_on_card(cuda, tmp_path):
     for p, q in zip(straight.model.flat_params(),
                     resumed.model.flat_params()):
         assert torch.equal(p, q)
+
+
+def _lbfgs_driver(tmp, device, iters, adam_epochs=10):
+    """The Poiseuille case (reference options, float64) on ``device``:
+    Adam, then ``iters`` on-device L-BFGS iterations."""
+    from tpinn_torch.cases import poiseuille_flow
+
+    return poiseuille_flow.main(str(tmp), adam_epochs=adam_epochs,
+                                device=device, second_round="jax",
+                                epochs=iters)
+
+
+@pytest.mark.cuda
+def test_lbfgs_round_on_card_matches_cpu(cuda, tmp_path):
+    """Ten L-BFGS iterations after ten Adam epochs, on the card and on the
+    CPU (plain versions) from the same seed: the same history within 1e-8
+    relative."""
+    gpu = _lbfgs_driver(tmp_path / "gpu", cuda, 10)
+    cpu = _lbfgs_driver(tmp_path / "cpu", "cpu", 10)
+    assert gpu.pb.history.round_names == ["keras_Adam", "jax_L-BFGS"]
+    assert gpu.pb.history.iters == cpu.pb.history.iters
+    a, b = _logs(gpu.pb.history), _logs(cpu.pb.history)
+    assert np.max(np.abs(a - b) / np.abs(b)) < 1e-8
+    assert a[0, -1] < a[0, 0]
+
+
+@pytest.mark.cuda
+def test_lbfgs_round_repeats_bit_identical_on_card(cuda, tmp_path):
+    a = _lbfgs_driver(tmp_path / "a", cuda, 10)
+    b = _lbfgs_driver(tmp_path / "b", cuda, 10)
+    np.testing.assert_array_equal(_logs(a.pb.history), _logs(b.pb.history))
+    for p, q in zip(a.model.flat_params(), b.model.flat_params()):
+        assert torch.equal(p, q)
+
+
+@pytest.mark.cuda
+def test_lbfgs_one_kernel_launch_per_trial(cuda, tmp_path):
+    """On the main path every line-search trial of the L-BFGS round is one
+    kernel-1 launch, plus one for the first iteration's value and
+    gradient; every logged evaluation is one kernel-2 launch."""
+    mb.reset_launch_counts()
+    drv = _lbfgs_driver(tmp_path, cuda, 10, adam_epochs=0)
+    counts = drv.pb.lbfgs_counts
+    assert counts["iterations"] == 10
+    assert mb.LAUNCHES["ns_residual_bwd"] == counts["evaluations"] \
+        == counts["trials"] + 1
+    assert mb.LAUNCHES["ns_residual_fwd"] == len(drv.pb.history.iters)
+    assert mb.LAUNCHES["taylor_bundle"] == 0

@@ -22,7 +22,8 @@ from tpinn_torch.cases import poiseuille_flow as pf_torch
 from tpinn_torch.config import SimulationOptions
 from tpinn_torch.driver import StandardNSDriver
 from tpinn_torch.history import History
-from tpinn_torch.losses import PrecomputedMeanSquares
+from tpinn_torch.losses import LossMeanSquares, PrecomputedMeanSquares
+from tpinn_torch.models import MLP
 from tpinn_torch.optimize import _log_iters, minimize
 from tpinn_torch.problem import OptimizationProblem
 from tpinn_torch.optimizers import SGD, Adam, AdamW
@@ -75,7 +76,7 @@ def test_poiseuille_history_matches_tpinn(tmp_path):
     td = StandardNSDriver.from_arrays(
         pf_torch.build_spec(), pf_torch.default_options(),
         base_dir=str(tmp_path), save_results=False, seed=0,
-        adam_epochs=epochs, device="cpu", **arrays)
+        adam_epochs=epochs, device="cpu", second_round="none", **arrays)
     assert (td.norm.norm_vel, td.norm.norm_pre) == (jd.norm.norm_vel,
                                                     jd.norm.norm_pre)
     # the port's CPU driver takes the fused objective's plain twin
@@ -89,7 +90,8 @@ def test_poiseuille_history_matches_tpinn(tmp_path):
 
 
 def test_poiseuille_main_writes_history(tmp_path):
-    drv = pf_torch.main(str(tmp_path), adam_epochs=12, device="cpu")
+    drv = pf_torch.main(str(tmp_path), adam_epochs=12, device="cpu",
+                        second_round="none")
     folder = drv.folder
     assert os.path.basename(folder) == "Test_Case_#001"
     path = os.path.join(folder, "History_Loss.json")
@@ -114,9 +116,11 @@ def test_driver_from_seed_is_reproducible(tmp_path):
     spec = pf_torch.build_spec()
     spec.grid_shape = (10, 5)
     a = StandardNSDriver(spec, opts, base_dir=str(tmp_path), device="cpu",
-                         save_results=False, adam_epochs=3)
+                         save_results=False, adam_epochs=3,
+                         second_round="none")
     b = StandardNSDriver(spec, opts, base_dir=str(tmp_path), device="cpu",
-                         save_results=False, adam_epochs=3)
+                         save_results=False, adam_epochs=3,
+                         second_round="none")
     assert all(np.array_equal(a.idx_set[k], b.idx_set[k]) for k in a.idx_set)
     assert all(torch.equal(p, q) for p, q in zip(a.model.flat_params(),
                                                  b.model.flat_params()))
@@ -129,9 +133,15 @@ def test_driver_from_seed_is_reproducible(tmp_path):
 
 def test_driver_refuses_unported_options(tmp_path, monkeypatch):
     spec, opts = pf_torch.build_spec(), pf_torch.default_options()
-    with pytest.raises(NotImplementedError, match="Adam round"):
+    spec.unsteady = True
+    with pytest.raises(NotImplementedError, match="unsteady.*item 6"):
         StandardNSDriver(spec, opts, base_dir=str(tmp_path), device="cpu",
                          second_round="jax")
+    spec = pf_torch.build_spec()
+    spec.pressure_gauge = "median"
+    with pytest.raises(ValueError, match="pressure_gauge"):
+        StandardNSDriver(spec, opts, base_dir=str(tmp_path), device="cpu")
+    spec = pf_torch.build_spec()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         StandardNSDriver(spec, opts, base_dir=str(tmp_path))
@@ -140,8 +150,13 @@ def test_driver_refuses_unported_options(tmp_path, monkeypatch):
 def test_minimize_strategies():
     assert _log_iters(25, 10) == [0, 10, 20, 25]
     assert _log_iters(20, 10) == [0, 10, 20]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        minimize(None, "jax", "L-BFGS")
+    # the float32 split carry of the dense BFGS round still raises
+    model = MLP(2, 1, width=4, depth=1, dtype=torch.float32, device="cpu")
+    x = torch.rand(8, 2)
+    pb = OptimizationProblem(model, [LossMeanSquares(
+        "fit", lambda: model(x)[:, 0] - 1.0)])
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 14"):
+        minimize(pb, "jax", "BFGS")
     with pytest.raises(ValueError, match="unknown strategy"):
         minimize(None, "newton")
 
@@ -229,7 +244,8 @@ def test_minimize_keras_takes_a_rate_or_any_ported_optimizer(tmp_path, opt,
 
     def run(optimizer):
         d = StandardNSDriver(spec, opts, base_dir=str(tmp_path),
-                             device="cpu", save_results=False)
+                             device="cpu", save_results=False,
+                             second_round="none")
         pb = OptimizationProblem(d.model, d.losses, d.losses_test)
         minimize(pb, "keras", optimizer, num_epochs=3)
         return pb.history

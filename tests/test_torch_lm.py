@@ -237,20 +237,45 @@ def test_unported_lm_variants_raise(shared, monkeypatch):
         minimize(pb, "jax", "LM", num_epochs=1)
 
 
-@pytest.mark.parametrize("name,method,exc,match", [
-    ("scipy", "L-BFGS-B", NotImplementedError, "item 4"),
-    ("scipy", "CG", NotImplementedError, "item 4"),
-    ("jax-bfgss", "BFGS", ValueError, "unknown second_round"),
-    ("jax", "BFGS", NotImplementedError, "item 4"),
-    ("adam", "BFGS", NotImplementedError, "item 13"),
-    ("scipy-parityy", "BFGS", ValueError, "unknown second_round"),
-])
-def test_second_round_routing_table(shared, name, method, exc, match):
-    jex, jd, arrays, tmp = shared
-    with pytest.raises(exc, match=match):
-        _port_driver(arrays, tmp, second_round=name, scipy_method=method)
-    td = _port_driver(arrays, tmp, second_round="none")
+def _routing_problem(arrays, tmp, case):
+    """The problem a routing case runs on: the LM-bound driver's losses
+    (residual losses with point residuals) in float64, or in float32, or
+    with one loss stripped of its point residual, or with a checkpointed
+    LM state to resume."""
+    if case == "float32":
+        opts = SimulationOptions(**{**pf.default_options().__dict__, **SMALL})
+        td = StandardNSDriver(pf.build_spec(), opts, base_dir=str(tmp),
+                              save_results=False, device="cpu",
+                              dtype=torch.float32, second_round="lm")
+    else:
+        td = _port_driver(arrays, tmp)
     pb = OptimizationProblem(td.model, td.losses, [])
+    if case == "no_point_residual":
+        pb.losses[-1].point_residual = None
+    if case == "lm_resume":
+        pb.resume_opt_state = {"kind": "lm", "theta64": pb.get_vector(),
+                               "mu": 1e-3}
+    return pb
+
+
+@pytest.mark.parametrize("name,method,case,exc,match", [
+    ("scipy", "BFGS", "float32", NotImplementedError, "item 14"),
+    ("lm", "BFGS", "float32", NotImplementedError, "item 14"),
+    ("jax-bfgss", "BFGS", None, ValueError, "unknown second_round"),
+    ("lm", "BFGS", "no_point_residual", NotImplementedError, "item 8"),
+    ("gn", "BFGS", "lm_resume", NotImplementedError, "item 8"),
+    ("scipy-parityy", "BFGS", None, ValueError, "unknown second_round"),
+])
+def test_second_round_routing_table(shared, name, method, case, exc, match):
+    """What the routing table still refuses: an unknown name (at the
+    driver's construction too), and, at the round, the float32 split
+    carries (item 14), an LM round on a loss without point residual and
+    an LM resume (item 8)."""
+    jex, jd, arrays, tmp = shared
+    if exc is ValueError:
+        with pytest.raises(exc, match=match):
+            _port_driver(arrays, tmp, second_round=name, scipy_method=method)
+    pb = _routing_problem(arrays, tmp, case)
     with pytest.raises(exc, match=match):
         run_second_round(pb, name, 3, scipy_method=method)
     assert pb.history.round_names == []
@@ -259,12 +284,14 @@ def test_second_round_routing_table(shared, name, method, exc, match):
 _SECOND_ROUND_NAMES = {"lm": "jax_LM", "jax-lm": "jax_LM", "gn": "jax_LM",
                        "scipy": "jax_BFGS", "jax-bfgs": "jax_BFGS",
                        "bfgs": "jax_BFGS", "scipy-parity": "scipy_BFGS",
-                       "scipy-host": "scipy_BFGS"}
+                       "scipy-host": "scipy_BFGS", "jax": "jax_L-BFGS",
+                       "adam": "keras_Adam"}
 
 
 @pytest.mark.parametrize("name", ["lm", "jax-lm", "gn", "none", None,
                                   "scipy", "jax-bfgs", "bfgs",
-                                  "scipy-parity", "scipy-host"])
+                                  "scipy-parity", "scipy-host", "jax",
+                                  "adam"])
 def test_second_round_names_that_run(shared, name):
     jex, jd, arrays, tmp = shared
     td = _port_driver(arrays, tmp, second_round=name)

@@ -12,7 +12,7 @@ reference's (``import tpinn_torch as ns``):
     ns.experimental.physics.tens_style.{gradient_scalar, laplacian_scalar, ...}
     ns.Loss / ns.LossMeanSquares
     ns.OptimizationProblem(model.variables, losses, losses_test)
-    ns.minimize(pb, "keras" | "scipy", ...)
+    ns.minimize(pb, "keras" | "scipy" | "jax", ...)
     ns.models.MLP, ns.optimizers.Adam, ns.utils.plot_history
 """
 

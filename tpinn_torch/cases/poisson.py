@@ -7,14 +7,15 @@
 A 2→20→20→20→1 tanh MLP (layer 0 folds the input extents), 200 PDE points,
 20 boundary points per edge, 1000 test points; Adam at lr 1e-2 for 100
 epochs, then scipy's L-BFGS-B (or, with ``--second-round jax-bfgs``, the
-on-device dense BFGS) for ``epochs`` iterations, in float64.  The PDE loss
+on-device dense BFGS; with ``jax``, the on-device L-BFGS) for ``epochs``
+iterations, in float64.  The PDE loss
 goes through the fused one-pass Poisson objective when the CUDA kernels
 take the net (on the card: one launch of the backward kernel per Adam step,
-scipy evaluation or BFGS trial, the forward kernel at log points), else
+scipy evaluation or (L-)BFGS trial, the forward kernel at log points), else
 through the tape.  Run with::
 
     python -m tpinn_torch.cases.poisson --out-dir OUT [--epochs 500] \
-        [--second-round scipy|jax-bfgs] [--device cpu]
+        [--second-round scipy|jax-bfgs|jax] [--device cpu]
 
 It writes ``OUT/Images/Poisson_history_loss.json``.
 """
@@ -77,24 +78,22 @@ def pde_loss(model, x_PDE, f, weight: float):
 def train(pb, epochs: int, second_round: str = "scipy") -> None:
     """Adam at lr 1e-2 for 100 epochs, then ``epochs`` iterations of the
     second round: "scipy" the host L-BFGS-B, "jax-bfgs" / "bfgs" the
-    on-device dense BFGS.  The LM round ("lm", "jax-lm", "gn") and the
-    on-device L-BFGS (any other name) are not ported for these cases and
-    raise before training."""
+    on-device dense BFGS, any other name the on-device L-BFGS, as the
+    examples route them.  The LM round ("lm", "jax-lm", "gn") is not
+    ported for these cases and raises before training."""
     if second_round in ("lm", "jax-lm", "gn"):
         raise NotImplementedError(
             f"second round {second_round!r}: the LM round of the Poisson "
             "cases (their per-point residuals) is not ported yet "
             "(ROADMAP.md, port queue 1, item 8)")
-    if second_round not in ("scipy", "jax-bfgs", "bfgs"):
-        raise NotImplementedError(
-            f"second round {second_round!r}: the on-device L-BFGS round is "
-            "not ported yet (ROADMAP.md, port queue 1, item 4)")
     ns.minimize(pb, "keras", ns.optimizers.Adam(learning_rate=1e-2),
                 num_epochs=ADAM_EPOCHS)
     if second_round == "scipy":
         ns.minimize(pb, "scipy", "L-BFGS-B", num_epochs=epochs)
-    else:
+    elif second_round in ("jax-bfgs", "bfgs"):
         ns.minimize(pb, "jax", "BFGS", num_epochs=epochs)
+    else:
+        ns.minimize(pb, "jax", "L-BFGS", num_epochs=epochs)
 
 
 def build(model, x_PDE, x_BC, x_test):
@@ -158,8 +157,9 @@ def cli(main_fn, default_epochs: int):
     ap.add_argument("--device", default=None,
                     help="default: the CUDA card; 'cpu' runs the plain path")
     ap.add_argument("--second-round", default="scipy",
-                    choices=["scipy", "jax-bfgs", "bfgs"],
-                    help="the host L-BFGS-B or the on-device dense BFGS")
+                    choices=["scipy", "jax", "jax-bfgs", "bfgs"],
+                    help="the host L-BFGS-B, the on-device L-BFGS or the "
+                         "on-device dense BFGS")
     ap.add_argument("--plots", action="store_true",
                     help="also plot the history (needs matplotlib)")
     args = ap.parse_args()

@@ -10,7 +10,7 @@ the PDE weight 1e2 and 7500 second-round iterations by default.  Run
 with::
 
     python -m tpinn_torch.cases.poisson_misto --out-dir OUT \
-        [--second-round scipy|jax-bfgs] [--device cpu]
+        [--second-round scipy|jax-bfgs|jax] [--device cpu]
 
 It writes ``OUT/Images/Poisson_misto_history_loss.json``.
 """

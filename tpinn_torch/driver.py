@@ -16,10 +16,12 @@
  12  grouped loss-trend figure      → tpinn_torch.viz.plot_loss_groups
  13  Test_Options.txt recap         → tpinn_torch.experiment.write_recap
 
-This port covers the steady case on one device with the Adam round and the
-dense BFGS, host scipy and Levenberg–Marquardt second rounds
-(``run_second_round``), the run artifacts and ``train(resume_from=...)``,
-which continues a saved run exactly (the BFGS carry comes back from
+This port covers the steady case on one device with the Adam round and
+every second round of the JAX package's routing table
+(``run_second_round``: dense BFGS, L-BFGS, host scipy, Levenberg–Marquardt
+and the cosine-decay Adam round), the pressure gauge (a ``Fit_p`` or a
+``PRESS_0`` loss), the run artifacts and ``train(resume_from=...)``, which
+continues a saved run exactly (the BFGS carry comes back from
 ``checkpoint.pkl``).  The PDE losses of a plain tanh MLP go through the
 one-pass fused objective (on a CUDA device one launch of the residual
 kernel per Adam step and per BFGS trial), except in an LM-bound driver: LM
@@ -52,10 +54,10 @@ from tpinn_torch.geometry import (
     split_indices,
 )
 from tpinn_torch.history import History
-from tpinn_torch.losses import LossMeanSquares, PrecomputedMeanSquares
+from tpinn_torch.losses import Loss, LossMeanSquares, PrecomputedMeanSquares
 from tpinn_torch.models import MLP
 from tpinn_torch.optimize import minimize
-from tpinn_torch.optimizers import Adam
+from tpinn_torch.optimizers import Adam, cosine_decay_schedule
 from tpinn_torch.pipeline import (
     FusedNSWeightedObjective,
     NSPhysics,
@@ -67,6 +69,7 @@ from tpinn_torch.pipeline import (
     neumann_point_residual,
     neumann_residual,
     pde_point_residuals,
+    pressure_mean_penalty,
     use_fused_pde_losses,
 )
 from tpinn_torch.problem import OptimizationProblem
@@ -81,56 +84,49 @@ SECOND_ROUND_CHOICES = (
 LM_ROUNDS = ("lm", "jax-lm", "gn")
 BFGS_ROUNDS = ("jax-bfgs", "bfgs")
 HOST_ROUNDS = ("scipy-parity", "scipy-host")
-# known second rounds that are not ported yet -> (what they run, ROADMAP.md
-# port queue 1 item)
-_UNPORTED_ROUNDS = {
-    "jax": ("the on-device L-BFGS round", 4),
-    "adam": ("the cosine-decay Adam second round", 13),
-}
 
 
-def check_second_round(second_round: Optional[str],
-                       scipy_method: str = "BFGS") -> None:
-    """Raise for a second round the port cannot run: NotImplementedError
-    naming its ROADMAP.md item for a known one ("scipy" with a method other
-    than BFGS routes to L-BFGS), ValueError for an unknown name."""
-    if second_round == "scipy" and scipy_method.upper() != "BFGS":
-        second_round = "jax"
-    if (second_round in (None, "none", "scipy") or second_round in LM_ROUNDS
-            or second_round in BFGS_ROUNDS or second_round in HOST_ROUNDS):
-        return
-    if second_round in _UNPORTED_ROUNDS:
-        what, item = _UNPORTED_ROUNDS[second_round]
-        raise NotImplementedError(
-            f"second_round={second_round!r} ({what}) is not ported yet: only "
-            f"the Adam round and the BFGS, host scipy and LM second rounds "
-            f"are (ROADMAP.md, port queue 1, item {item})")
-    raise ValueError(f"unknown second_round {second_round!r}; choices: "
-                     f"{SECOND_ROUND_CHOICES}")
+def check_second_round(second_round: Optional[str]) -> None:
+    """Raise ValueError for a name outside ``SECOND_ROUND_CHOICES``."""
+    if second_round is not None and second_round not in SECOND_ROUND_CHOICES:
+        raise ValueError(f"unknown second_round {second_round!r}; choices: "
+                         f"{SECOND_ROUND_CHOICES}")
 
 
 def run_second_round(pb: OptimizationProblem, second_round: Optional[str],
-                     epochs: int, scipy_method: str = "BFGS") -> None:
+                     epochs: int, scipy_method: str = "BFGS",
+                     adam_lr: float = 1e-2) -> None:
     """The one routing table for the second optimizer round, for
-    ``epochs`` iterations:
+    ``epochs`` iterations, as the JAX package's:
 
     * "scipy": the resumable on-device dense BFGS (its carry checkpoints,
       where scipy keeps its state to itself); with a ``scipy_method``
-      other than BFGS the on-device L-BFGS, which is not ported;
+      other than BFGS the on-device L-BFGS;
     * "scipy-parity" / "scipy-host": the host scipy round with
       ``scipy_method``;
+    * "jax": the on-device L-BFGS;
     * "jax-bfgs" / "bfgs": the on-device dense BFGS;
     * "lm" / "jax-lm" / "gn": Levenberg–Marquardt;
+    * "adam": Adam on the cosine-decay schedule from ``adam_lr`` over
+      ``epochs`` steps to 1e-3 of it (round ``keras_Adam``);
     * "none" / None: nothing.
 
-    Every other name raises (``check_second_round``)."""
-    check_second_round(second_round, scipy_method)
-    if second_round == "scipy" or second_round in BFGS_ROUNDS:
-        minimize(pb, "jax", "BFGS", num_epochs=epochs)
+    Any other name raises ValueError (``check_second_round``)."""
+    check_second_round(second_round)
+    if second_round == "scipy":
+        method = "BFGS" if scipy_method.upper() == "BFGS" else "L-BFGS"
+        minimize(pb, "jax", method, num_epochs=epochs)
     elif second_round in HOST_ROUNDS:
         minimize(pb, "scipy", scipy_method, num_epochs=epochs)
+    elif second_round == "jax":
+        minimize(pb, "jax", "L-BFGS", num_epochs=epochs)
+    elif second_round in BFGS_ROUNDS:
+        minimize(pb, "jax", "BFGS", num_epochs=epochs)
     elif second_round in LM_ROUNDS:
         minimize(pb, "jax", "LM", num_epochs=epochs)
+    elif second_round == "adam":
+        schedule = cosine_decay_schedule(adam_lr, max(epochs, 1), alpha=1e-3)
+        minimize(pb, "keras", Adam(schedule), num_epochs=epochs)
 
 
 @dataclasses.dataclass
@@ -152,6 +148,9 @@ class CaseSpec:
     unsteady: bool = False  # the unsteady path is not ported: raises
     width: int = 32
     depth: int = 3
+    # the pressure gauge: None, "fit" (a Fit_p loss on the pressure split)
+    # or "mean" (a PRESS_0 penalty on |mean p|)
+    pressure_gauge: Optional[str] = None
 
     @property
     def dim_in(self) -> int:
@@ -169,7 +168,7 @@ class StandardNSDriver:
         base_dir: str = ".",
         save_results: bool = True,
         seed: int = 0,
-        second_round: str = "none",
+        second_round: str = "scipy",
         scipy_method: str = "BFGS",
         adam_epochs: int = 100,
         adam_lr: float = 1e-2,
@@ -180,8 +179,12 @@ class StandardNSDriver:
         if spec.unsteady:
             raise NotImplementedError(
                 "the unsteady driver path is not ported yet (ROADMAP.md, "
-                "port queue 1)")
-        check_second_round(second_round, scipy_method)
+                "port queue 1, item 6)")
+        check_second_round(second_round)
+        if spec.pressure_gauge not in (None, "fit", "mean"):
+            raise ValueError(f"unknown pressure_gauge "
+                             f"{spec.pressure_gauge!r}; choices: None, "
+                             "'fit', 'mean'")
         self.spec = spec
         self.opts = opts
         self.base_dir = base_dir
@@ -319,8 +322,8 @@ class StandardNSDriver:
             return (dirichlet_point_residual(model, comp), (x, r))
 
         losses = []
+        x_pde = take(self.idx_set["PDE"])
         if opts.use_collloss:
-            x_pde = take(self.idx_set["PDE"])
             weights = (spec.weight("PDE_MASS", 1e1),
                        spec.weight("PDE_MOMU", 1e0),
                        spec.weight("PDE_MOMV", 1e0))
@@ -399,6 +402,20 @@ class StandardNSDriver:
                     point_residual=dir_pr(1, x_vel, fit_v)),
             ]
 
+        x_pres = take(self.idx_set["Pres"])
+        if spec.pressure_gauge == "fit" and opts.fit_pressure:
+            fit_p = self.sol_noise[2]
+            losses.append(LMS(
+                "Fit_p", lambda: dirichlet_residual(model, x_pres, 2, fit_p),
+                weight=spec.weight("FIT", 1e0),
+                point_residual=dir_pr(2, x_pres, fit_p)))
+        elif spec.pressure_gauge == "mean":
+            # |mean p| over the pressure split, else over the PDE batch
+            gauge_pts = x_pres if len(self.idx_set["Pres"]) else x_pde
+            losses.append(Loss(
+                "PRESS_0", lambda: pressure_mean_penalty(model, gauge_pts),
+                weight=spec.weight("PRESS_0", 1e-2), non_negative=True))
+
         it = self.idx_set["Test"]
         x_test = take(it)
         it_t = torch.as_tensor(it, device=self.device)
@@ -450,7 +467,8 @@ class StandardNSDriver:
             minimize(pb, "keras", Adam(learning_rate=self.adam_lr),
                      num_epochs=self.adam_epochs)
         run_second_round(pb, self.second_round, epochs,
-                         scipy_method=self.scipy_method)
+                         scipy_method=self.scipy_method,
+                         adam_lr=self.adam_lr)
         pb.save_history(os.path.join(self.folder, "History_Loss.json"))
         return pb
 

@@ -16,13 +16,18 @@
   device (round ``jax_BFGS``): the inverse Hessian, the direction, a
   strong-Wolfe line search and the rank-2 update stay on the model's
   device; the host reads one flag per line-search trial.
+* ``minimize(pb, "jax", "L-BFGS", num_epochs)`` (also
+  ``minimize(pb, "lbfgs", ...)``) runs optax's L-BFGS on the device (round
+  ``jax_L-BFGS``): memory 50, the two-loop direction over the ring of
+  curvature pairs, and optax's zoom line search
+  (``tpinn_torch.linesearch``); the host reads one flag tensor per
+  line-search trial.
 * ``minimize(pb, "jax", "LM", num_epochs)`` runs Levenberg–Marquardt on the
   stacked residual vector (round ``jax_LM``): the normal equations from the
   per-point Gram on the device, one host eigendecomposition per iteration,
   and damped steps accepted by a paired-difference test.
 
-Second-order rounds run with IEEE float32 products (no TF32).  The JAX
-package's on-device L-BFGS round is not ported yet.
+Second-order rounds run with IEEE float32 products (no TF32).
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ import numpy as np
 import torch
 
 from tpinn_torch.history import LOG_STRIDE
+from tpinn_torch.linesearch import ScaleByZoomLinesearch
 from tpinn_torch.losses import LossMeanSquares
 from tpinn_torch.optimizers import Adam, Optimizer
 from tpinn_torch.problem import OptimizationProblem
@@ -428,6 +434,191 @@ def _minimize_jax_bfgs(pb: OptimizationProblem, num_epochs: int,
 
 
 # ---------------------------------------------------------------------------
+# L-BFGS on the device (round jax_L-BFGS)
+# ---------------------------------------------------------------------------
+
+class LBFGSState:
+    """``optax.ScaleByLBFGSState`` on flat vectors: the previous parameters
+    and updates, the ring of parameter and update differences (one row per
+    slot) and their weights 1/⟨Δu, Δw⟩.  The weights are float64 whatever
+    the parameters' dtype, as optax's ``jnp.zeros(memory_size)`` is under
+    x64; the count is a host integer."""
+
+    def __init__(self, params: torch.Tensor, memory_size: int):
+        m, n = int(memory_size), params.shape[0]
+        self.count = 0
+        self.params = torch.zeros_like(params)
+        self.updates = torch.zeros_like(params)
+        self.diff_params_memory = params.new_zeros((m, n))
+        self.diff_updates_memory = params.new_zeros((m, n))
+        self.weights_memory = torch.zeros(m, dtype=torch.float64,
+                                          device=params.device)
+
+    def as_dict(self) -> dict:
+        return {"count": self.count, "params": self.params,
+                "updates": self.updates,
+                "diff_params_memory": self.diff_params_memory,
+                "diff_updates_memory": self.diff_updates_memory,
+                "weights_memory": self.weights_memory}
+
+
+def _precondition_by_lbfgs(updates, diff_params_memory, diff_updates_memory,
+                           weights_memory, identity_scale, memory_idx: int):
+    """optax's two-loop recursion over every slot of the ring, in the order
+    (memory_idx + arange(m)) % m: reversed for the right product, forward
+    for the left one.  An empty slot has weight 0 and leaves the vector as
+    it is.  The coefficients are float64 products (the weights' dtype) and
+    each axpy runs in float64 before it is rounded to the vector's dtype,
+    as optax's promotions do.  Device ops only: no host read."""
+    m = weights_memory.shape[0]
+    dtype = updates.dtype
+    indices = [(memory_idx + i) % m for i in range(m)]
+    vec = updates
+    alphas = {}
+    for i in reversed(indices):
+        alpha = weights_memory[i] * torch.dot(diff_params_memory[i], vec)
+        alphas[i] = alpha
+        vec = (vec.double() - alpha * diff_updates_memory[i].double()
+               ).to(dtype)
+    vec = identity_scale * vec
+    for i in indices:
+        beta = weights_memory[i] * torch.dot(diff_updates_memory[i], vec)
+        vec = (vec.double() + (alphas[i] - beta)
+               * diff_params_memory[i].double()).to(dtype)
+    return vec
+
+
+def _scale_by_lbfgs(updates: torch.Tensor, state: LBFGSState,
+                    params: torch.Tensor):
+    """``optax.scale_by_lbfgs``'s update (with ``scale_init_precond``, as
+    ``optax.lbfgs`` sets it): store the newest difference pair
+    at slot (count − 1) % m (zeros at count 0), scale the identity by
+    ⟨Δu, Δw⟩/‖Δu‖² (min(1, 1/‖u‖) at count 0), then the two-loop product.
+    Returns the preconditioned updates; ``state`` moves on in place."""
+    m = state.weights_memory.shape[0]
+    memory_idx = state.count % m
+    prev_memory_idx = (state.count - 1) % m
+    if state.count > 0:
+        diff_params = params - state.params
+        diff_updates = updates - state.updates
+        vdot = torch.dot(diff_updates, diff_params)
+        weight = torch.where(vdot == 0.0, 0.0, 1.0 / vdot)
+    else:
+        diff_params = torch.zeros_like(params)
+        diff_updates = torch.zeros_like(updates)
+        vdot = weight = torch.zeros((), dtype=params.dtype,
+                                    device=params.device)
+    state.diff_params_memory[prev_memory_idx] = diff_params
+    state.diff_updates_memory[prev_memory_idx] = diff_updates
+    state.weights_memory[prev_memory_idx] = weight
+    if state.count > 0:
+        denominator = torch.dot(diff_updates, diff_updates)
+        identity_scale = torch.where(
+            denominator > 0.0,
+            vdot / torch.where(denominator > 0.0, denominator, 1.0), 1.0)
+    else:
+        norm = torch.sqrt(torch.dot(updates, updates))
+        identity_scale = torch.clamp_max(1.0 / norm, 1.0)
+    precond = _precondition_by_lbfgs(
+        updates, state.diff_params_memory, state.diff_updates_memory,
+        state.weights_memory, identity_scale, memory_idx)
+    state.count += 1
+    state.params = params
+    state.updates = updates
+    return precond
+
+
+# optax.lbfgs's memory in the JAX package's round (tpinn/optimize.py:200)
+_LBFGS_MEMORY = 50
+
+
+def _minimize_jax_lbfgs(pb: OptimizationProblem, num_epochs: int,
+                        timed: bool = False):
+    """optax's ``lbfgs(memory_size=50, linesearch=scale_by_zoom_linesearch(
+    max_linesearch_steps=30, initial_guess_strategy="one"))`` on the flat
+    device vector, driven as ``optax.value_and_grad_from_state`` drives it:
+    an iteration evaluates the loss only when the line search's last value
+    is inf or NaN (the first iteration, or a search that ended outside the
+    domain), and otherwise takes the value and gradient the search ended
+    on.  Per iteration: the direction d = −(two-loop product of g), then
+    the zoom line search along d (each trial one value and gradient, the
+    host reading one flag tensor), then x ← x + η·d.
+
+    The state lives on the device; ``pb.last_opt_state = {"kind":
+    "lbfgs", ...}`` is published at every log point, and, as in the JAX
+    package, no round adopts it: a resumed L-BFGS round restarts from the
+    parameters alone.  ``pb.lbfgs_counts`` counts iterations, line-search
+    trials and evaluations; with ``timed`` ``pb.lbfgs_times`` gets, per
+    iteration, the seconds of the direction and of the evaluations (the
+    line search with its trials), the device synchronised at each
+    boundary."""
+    x = pb.get_flat()
+    device = x.device
+    counts = {"iterations": 0, "trials": 0, "evaluations": 0}
+    pb.lbfgs_counts = counts
+    pb.lbfgs_times = []
+
+    def vg(theta):
+        counts["evaluations"] += 1
+        return pb.flat_value_and_grad(theta)
+
+    def trial(theta):
+        counts["trials"] += 1
+        return vg(theta)
+
+    lbfgs = LBFGSState(x, _LBFGS_MEMORY)
+    linesearch = ScaleByZoomLinesearch(max_linesearch_steps=30)
+    ls_state = linesearch.init(x)
+
+    def publish():
+        pb.last_opt_state = {"kind": "lbfgs", "lbfgs": lbfgs.as_dict(),
+                             "learning_rate": ls_state.learning_rate,
+                             "value": ls_state.value, "grad": ls_state.grad}
+
+    def step(x, ls_state):
+        if ls_state.value_nonfinite:
+            value, grad = vg(x)
+        else:
+            value, grad = ls_state.value, ls_state.grad
+        d = -1.0 * _scale_by_lbfgs(grad, lbfgs, x)
+        if timed:
+            _sync(device)
+            part["direction"] = time.perf_counter() - tick
+        upd, ls_state = linesearch.update(d, ls_state, x, value=value,
+                                          grad=grad, value_and_grad_fn=trial)
+        x = x + upd
+        if timed:
+            _sync(device)
+            part["evaluations"] = time.perf_counter() - tick - \
+                part["direction"]
+        return x, ls_state
+
+    pb.history.start_round("jax_L-BFGS")
+    pb.last_round_name = "jax_L-BFGS"
+    t0 = time.perf_counter()
+    publish()
+    _log_point(pb, 0, x)
+    done = 0
+    part, tick = {}, time.perf_counter()
+    for target in _log_iters(num_epochs, LOG_STRIDE)[1:]:
+        for _ in range(target - done):
+            if timed:
+                _sync(device)
+                part = {}
+                pb.lbfgs_times.append(part)
+            tick = time.perf_counter()
+            x, ls_state = step(x, ls_state)
+            counts["iterations"] += 1
+        done = target
+        publish()
+        _log_point(pb, done, x)
+    pb.set_flat(x)
+    pb.history.add_wall_time(time.perf_counter() - t0)
+    pb.fire_callbacks(pb.history.iters[-1], force=True)
+    return pb.params
+
+
+# ---------------------------------------------------------------------------
 # Levenberg–Marquardt (round jax_LM)
 # ---------------------------------------------------------------------------
 
@@ -636,8 +827,9 @@ def _ieee_products():
 def minimize(pb: OptimizationProblem, strategy: str, optimizer=None,
              num_epochs: int = 100, timed: bool = False):
     """Run one optimization round; appends to pb.history and updates the
-    model's parameters in place.  ``timed`` makes the dense BFGS round
-    record its iteration split (``pb.bfgs_times``)."""
+    model's parameters in place.  ``timed`` makes the dense BFGS and the
+    L-BFGS rounds record their iteration split (``pb.bfgs_times``,
+    ``pb.lbfgs_times``)."""
     strategy = strategy.lower()
     if strategy in ("keras", "adam"):
         optimizer = _first_order_optimizer(optimizer)
@@ -656,7 +848,6 @@ def minimize(pb: OptimizationProblem, strategy: str, optimizer=None,
         if key in ("LM", "GN", "LEVENBERGMARQUARDT", "GAUSSNEWTON"):
             with _ieee_products():
                 return _minimize_lm(pb, num_epochs)
-        raise NotImplementedError(
-            f"minimize(pb, {strategy!r}, {method!r}): the on-device L-BFGS "
-            "round is not ported yet (ROADMAP.md, port queue 1, item 4)")
+        with _ieee_products():
+            return _minimize_jax_lbfgs(pb, num_epochs, timed=timed)
     raise ValueError(f"unknown strategy {strategy!r}")

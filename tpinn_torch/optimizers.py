@@ -16,14 +16,21 @@ transforms exactly:
 * ``SGD``: ``trace`` when a momentum is given (m = g + decay · m; u = m, or
   g + decay · m with Nesterov), else u = g; then p = p + (−lr) u.
 
-The parameters are updated in place (no copy of the model per step).
+The learning rate is a number or a schedule: a callable of the step
+count, counted from 0 at the first update, as
+``optax.scale_by_learning_rate(schedule)`` counts it
+(``cosine_decay_schedule`` ports optax's).  The parameters are updated in
+place (no copy of the model per step).
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+import math
+from typing import Callable, List, Optional, Sequence, Union
 
 import torch
+
+Rate = Union[float, Callable[[int], float]]
 
 
 class Optimizer:
@@ -32,8 +39,10 @@ class Optimizer:
 
     name = "Optimizer"
 
-    def __init__(self, learning_rate: float = 1e-2):
-        self.learning_rate = float(learning_rate)
+    def __init__(self, learning_rate: Rate = 1e-2):
+        self.learning_rate = (learning_rate if callable(learning_rate)
+                              else float(learning_rate))
+        self.step_count = 0
 
     def init(self, params: Sequence[torch.Tensor]) -> None:
         raise NotImplementedError
@@ -45,14 +54,37 @@ class Optimizer:
     @torch.no_grad()
     def step(self, params: Sequence[torch.Tensor],
              grads: Sequence[torch.Tensor]) -> None:
+        rate = self.learning_rate
+        if callable(rate):
+            rate = float(rate(self.step_count))
+        self.step_count += 1
         for p, u in zip(params, self.updates(params, grads)):
-            p.add_(-self.learning_rate * u)
+            p.add_(-rate * u)
+
+
+def cosine_decay_schedule(init_value: float, decay_steps: int,
+                          alpha: float = 0.0) -> Callable[[int], float]:
+    """``optax.cosine_decay_schedule`` (exponent 1): init_value · ((1 −
+    alpha) · c(k) + alpha) with c(k) = (1 + cos(π·min(k, decay_steps) /
+    decay_steps)) / 2, in float64."""
+    if not decay_steps > 0:
+        raise ValueError("The cosine_decay_schedule requires positive "
+                         f"decay_steps, got decay_steps={decay_steps}.")
+    steps = float(decay_steps)
+
+    def schedule(count: int) -> float:
+        count = min(float(count), steps)
+        cosine_decay = 0.5 * (1 + math.cos(math.pi * count / steps))
+        decayed = (1 - alpha) * cosine_decay + alpha
+        return init_value * decayed
+
+    return schedule
 
 
 class Adam(Optimizer):
     name = "Adam"
 
-    def __init__(self, learning_rate: float = 1e-2, b1: float = 0.9,
+    def __init__(self, learning_rate: Rate = 1e-2, b1: float = 0.9,
                  b2: float = 0.999, eps: float = 1e-8, eps_root: float = 0.0):
         super().__init__(learning_rate)
         self.b1, self.b2 = float(b1), float(b2)
@@ -62,7 +94,7 @@ class Adam(Optimizer):
         self.nu: List[torch.Tensor] = []
 
     def init(self, params: Sequence[torch.Tensor]) -> None:
-        self.count = 0
+        self.count = self.step_count = 0
         self.mu = [torch.zeros_like(p) for p in params]
         self.nu = [torch.zeros_like(p) for p in params]
 
@@ -84,7 +116,7 @@ class Adam(Optimizer):
 class AdamW(Adam):
     name = "AdamW"
 
-    def __init__(self, learning_rate: float = 1e-2, b1: float = 0.9,
+    def __init__(self, learning_rate: Rate = 1e-2, b1: float = 0.9,
                  b2: float = 0.999, eps: float = 1e-8, eps_root: float = 0.0,
                  weight_decay: float = 1e-4):
         super().__init__(learning_rate, b1, b2, eps, eps_root)
@@ -98,7 +130,7 @@ class AdamW(Adam):
 class SGD(Optimizer):
     name = "SGD"
 
-    def __init__(self, learning_rate: float = 1e-2,
+    def __init__(self, learning_rate: Rate = 1e-2,
                  momentum: Optional[float] = None, nesterov: bool = False):
         super().__init__(learning_rate)
         self.momentum = None if momentum is None else float(momentum)
@@ -106,6 +138,7 @@ class SGD(Optimizer):
         self.trace: List[torch.Tensor] = []
 
     def init(self, params: Sequence[torch.Tensor]) -> None:
+        self.step_count = 0
         self.trace = [torch.zeros_like(p) for p in params]
 
     def updates(self, params, grads) -> List[torch.Tensor]:

@@ -4,6 +4,7 @@
   mixed-BC variant adds the Neumann data ∂u/∂x = cos(x) sin(y).
 * Poiseuille: plane channel flow with a pressure drop, with the reference's
   lava parameters.
+* Colliding flow: the polynomial Stokes solution on (−1, 1)².
 """
 
 from __future__ import annotations
@@ -63,3 +64,18 @@ def poiseuille_v(x, prm: PoiseuilleParams = PoiseuilleParams()):
 
 def poiseuille_p(x, prm: PoiseuilleParams = PoiseuilleParams()):
     return (prm.p_out - prm.p_in) / prm.L * x[:, 0] + prm.p_in
+
+
+# -- Colliding flow (polynomial Stokes solution) ------------------------------
+
+
+def colliding_u(x):
+    return 20.0 * x[:, 0] * x[:, 1] ** 3
+
+
+def colliding_v(x):
+    return 5.0 * x[:, 0] ** 4 - 5.0 * x[:, 1] ** 4
+
+
+def colliding_p(x):
+    return 60.0 * x[:, 0] ** 2 * x[:, 1] - 20.0 * x[:, 1] ** 3

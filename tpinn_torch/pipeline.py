@@ -185,6 +185,12 @@ def dirichlet_residual(model: Model, points: torch.Tensor, component: int,
     return model(points)[:, component] - rhs
 
 
+def pressure_mean_penalty(model: Model, points: torch.Tensor):
+    """|mean p| over ``points``: the pressure-gauge penalty (PRESS_0, a
+    ``Loss`` with ``non_negative=True``)."""
+    return torch.abs(torch.mean(model(points)[:, 2]))
+
+
 class FusedNSResidualMSEs:
     """The three PDE MSEs (mass, mom-u, mom-v) from one call of
     ``ns_residual_mse`` (kernel 2 forward, kernel 1 backward on CUDA),

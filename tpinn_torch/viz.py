@@ -1,6 +1,7 @@
 """The figures a steady case writes with its artifacts: the exact-vs-PINN
 contour grid (Graphic.jpg) and the grouped loss trend
-(Loss_Trend_Reduced.png).
+(Loss_Trend_Reduced.png); and the 3-D exact-vs-PINN scatter of the
+hand-rolled cases.
 
 Levels are shared by the exact and the PINN field, rounded outward to
 5·10^k; the loss trend draws the global loss and each group's mean
@@ -76,6 +77,27 @@ def contour_compare(grid_x, grid_y, exact_fields: Sequence,
         fig.savefig(filename)
         plt.close(fig)
     return fig
+
+
+def scatter3d_compare(x, y, exact, pinn, filename: Optional[str] = None,
+                      labels=("exact solution", "numerical solution")):
+    """3-D scatter of the exact and the PINN values over the test points."""
+    plt = _plt()
+    fig = plt.figure()
+    ax = fig.add_subplot(111, projection="3d")
+    for z, label in zip((exact, pinn), labels):
+        ax.scatter(_host(x), _host(y), _host(z), label=label)
+    ax.legend()
+    if filename:
+        fig.savefig(filename)
+        plt.close(fig)
+    return fig
+
+
+def _host(a) -> np.ndarray:
+    if hasattr(a, "detach"):
+        a = a.detach().cpu()
+    return np.asarray(a)
 
 
 def plot_loss_groups(history: dict, groups: Dict[str, List[str]],
