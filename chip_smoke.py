@@ -123,10 +123,34 @@ exits non-zero:
    3/4, one kernel-3 launch per evaluation) against the CPU at 1e-8;
 21. the cosine-decay Adam second round ("adam", 100 epochs) on Poiseuille,
    card against CPU at 1e-8.
+22. the unsteady slice at full width: Cavity_Unsteady at its reference
+   options (10,000 PDE, 1,000 boundary and 1,000 initial points, 50
+   velocity-fitting points, 1,000 test points, 5 % noise; 3-32-32-32-3,
+   float64; the 100 × 101 × 101 space-time grid) through
+   tpinn_torch.cases.cavity_unsteady.main: the exact data from the port's
+   cavity oracle on the card (n = 100, 500 projection steps; its seconds,
+   CG iterations and host synchronisations printed), then Adam 100 and the
+   default "scipy" round (the dense BFGS, 20 iterations) through kernels
+   1/2 at d_in = 3, held against the same run on the CPU fed the card's
+   oracle arrays (the Adam logs and every log to BFGS iteration 20 at 1e-8,
+   the final global loss at 5 %), one kernel-1 launch per value and
+   gradient, the ms per Adam epoch and per BFGS iteration, the run folder;
+23. the cavity oracle on the card against the CPU at n = 32 over 20 output
+   steps: every field within 1e-9·max|field|, the same CG iterations;
+24. the roofline probe (tpinn_torch/kernels/roofline_probe.py): its five
+   bodies against their plain versions (float64 within 1e-12·max|ref|,
+   float32 within 1e-5, S 5 and 6, C 8, 16 and 32, repeats bit-identical),
+   their SASS (one rep's DMMA / DFMA / FFMA per instance, no HMMA), then
+   each body's rate in float64 and float32 at the residual tile (C = 8)
+   beside the same reps as PyTorch calls, no rate above the data sheet's
+   peak, the plain versions' time, and the attainable bound of kernels 1-5
+   at their main shapes from the probe's float64 rates.
 
 The line before the last is the kernels' JSON record (each kernel's
 launches on every path that runs it, ``launches`` being its slice's main
-path), the last line ``{"ok": true, "device": {...}}``.
+path, and ``bound_probe_ms`` its attainable bound from phase 24; the probe's
+bodies with the launches of phase 24's rate runs), the last line
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -174,6 +198,15 @@ COLLIDING_ITERS = 20
 POISSON_LBFGS_ITERS = 20
 # the cosine-decay Adam second round (phase 21)
 COSINE_EPOCHS = 100
+# Cavity_Unsteady's default "scipy" round (phase 22), held like phase 20's
+CAVITY_ITERS = 20
+# the cavity oracle card against CPU (phase 23): max |Δ| / max|field|
+ORACLE_BAR = 1e-9
+# the roofline probe (phase 24): reps of the comparison with the plain
+# versions (few enough that float32 chains stay normal), then the rates
+PROBE_CHECK_REPS = 8
+PROBE_REPS = 96
+PROBE_OUTER = 10
 
 
 def phase(name):
@@ -192,84 +225,105 @@ def phase(name):
     return _P()
 
 
-def ns_flops_per_point(widths, d_in, bwd):
+def ns_work_split(widths, d_in, bwd):
     """Floating-point operations one point needs in the NS-residual
-    kernels: the per-stream layer products, the tanh stream algebra, the
-    residual rows and, for the backward, the cotangent algebra, the dW/db
-    contractions and the back-propagation of the stream cotangents."""
+    kernels, by the unit that does the work: "dot" the per-stream layer
+    products and, for the backward, the back-propagation of the stream
+    cotangents; "gram" the dW contractions; "tanh" one per hidden neuron;
+    "fma" the rest: the tanh stream algebra, the residual rows and the
+    cotangent algebra."""
     S = 1 + d_in + 2
     L = len(widths) - 1
-    f = 0
+    w = {"dot": 0, "gram": 0, "tanh": 0, "fma": 0}
     for l in range(L):
         wi, wo = widths[l], widths[l + 1]
-        f += (2 * wi * wo if l == 0 else 2 * S * wi * wo) + wo
-        if l < L - 1:  # tanh, tanh', a, g streams, h streams
-            f += wo * (1 + 2 + 2 + d_in + 2 * (3 if l == 0 else 5))
-    f += 2 * 14 + 6  # residual rows and squares
+        w["dot"] += 2 * wi * wo if l == 0 else 2 * S * wi * wo
+        w["fma"] += wo
+        if l < L - 1:  # tanh; tanh', a, g streams, h streams
+            w["tanh"] += wo
+            w["fma"] += wo * (2 + 2 + d_in + 2 * (3 if l == 0 else 5))
+    w["fma"] += 2 * 14 + 6  # residual rows and squares
     if not bwd:
-        return f
-    f += 30  # residual cotangents
+        return w
+    w["fma"] += 30  # residual cotangents
     for l in range(L - 1, -1, -1):
         wi, wo = widths[l], widths[l + 1]
         if l < L - 1:
-            f += wo * (6 + 1 + 3 * d_in + 2 * (7 if l > 0 else 5)
-                       + d_in + 2 * 3 + 2)
-        f += (3 * wi * wo if l == 0 else 2 * S * wi * wo) + wo
+            w["fma"] += wo * (6 + 1 + 3 * d_in + 2 * (7 if l > 0 else 5)
+                              + d_in + 2 * 3 + 2)
+        w["gram"] += 3 * wi * wo if l == 0 else 2 * S * wi * wo
+        w["fma"] += wo
         if l > 0:
-            f += 2 * S * wi * wo
-    return f
+            w["dot"] += 2 * S * wi * wo
+    return w
 
 
-def poisson_flops_per_point(widths, bwd):
-    """Floating-point operations one point needs in the Poisson-residual
-    kernels, counted like ``ns_flops_per_point``: the hidden layers carry
+def poisson_work_split(widths, bwd):
+    """The same for the Poisson-residual kernels: the hidden layers carry
     all five streams (value, two gradient and two Hessian-diagonal streams);
     at the scalar head only the two Hessian-diagonal streams are needed,
     forward and backward (the other head cotangents are structural zeros),
     and the head bias gets no gradient."""
     d_in, S = 2, 5
     L = len(widths) - 1
-    f = 0
+    w = {"dot": 0, "gram": 0, "tanh": 0, "fma": 0}
     for l in range(L):
         wi, wo = widths[l], widths[l + 1]
         if l == L - 1:
-            f += 2 * 2 * wi * wo
+            w["dot"] += 2 * 2 * wi * wo
             continue
-        f += (2 * wi * wo if l == 0 else 2 * S * wi * wo) + wo
-        f += wo * (1 + 2 + 2 + d_in + 2 * (3 if l == 0 else 5))
-    f += 5  # r = (h_x + h_y + f)·scale, r², the sum
+        w["dot"] += 2 * wi * wo if l == 0 else 2 * S * wi * wo
+        w["fma"] += wo + wo * (2 + 2 + d_in + 2 * (3 if l == 0 else 5))
+        w["tanh"] += wo
+    w["fma"] += 5  # r = (h_x + h_y + f)·scale, r², the sum
     if not bwd:
-        return f
-    f += 3  # c = ḡ·(2/n)·r·scale
+        return w
+    w["fma"] += 3  # c = ḡ·(2/n)·r·scale
     for l in range(L - 1, -1, -1):
         wi, wo = widths[l], widths[l + 1]
         if l == L - 1:
-            f += 2 * 2 * wi * wo * (2 if l > 0 else 1)
+            w["gram"] += 2 * 2 * wi * wo
+            if l > 0:
+                w["dot"] += 2 * 2 * wi * wo
             continue
-        f += wo * (6 + 1 + 3 * d_in + 2 * (7 if l > 0 else 5)
-                   + d_in + 2 * 3 + 2)
-        f += (3 * wi * wo if l == 0 else 2 * S * wi * wo) + wo
+        w["fma"] += wo * (6 + 1 + 3 * d_in + 2 * (7 if l > 0 else 5)
+                          + d_in + 2 * 3 + 2) + wo
+        w["gram"] += 3 * wi * wo if l == 0 else 2 * S * wi * wo
         if l > 0:
-            f += 2 * S * wi * wo
-    return f
+            w["dot"] += 2 * S * wi * wo
+    return w
+
+
+def bundle_work_split(widths, dim):
+    """The same for kernel 5: layer 0 forms the value stream only (its
+    tangent streams are rows of W0, its second-order streams zero); every
+    later layer multiplies all 1 + 2·dim streams; per hidden neuron tanh,
+    tanh' (2), a = −2·v·tanh' (2), dim tangent products and per
+    second-order stream a·z_g·z_g + tanh'·z_h (4, 2 at layer 0 where z_h
+    is zero)."""
+    S = 1 + 2 * dim
+    L = len(widths) - 1
+    w = {"dot": 0, "gram": 0, "tanh": 0, "fma": 0}
+    for l in range(L):
+        wi, wo = widths[l], widths[l + 1]
+        w["dot"] += 2 * wi * wo if l == 0 else 2 * S * wi * wo
+        w["fma"] += wo
+        if l < L - 1:
+            w["tanh"] += wo
+            w["fma"] += wo * (2 + 2 + dim + dim * (2 if l == 0 else 4))
+    return w
+
+
+def ns_flops_per_point(widths, d_in, bwd):
+    return sum(ns_work_split(widths, d_in, bwd).values())
+
+
+def poisson_flops_per_point(widths, bwd):
+    return sum(poisson_work_split(widths, bwd).values())
 
 
 def bundle_flops_per_point(widths, dim):
-    """Floating-point operations one point needs in kernel 5: layer 0
-    forms the value stream only (its tangent streams are rows of W0, its
-    second-order streams zero); every later layer multiplies all 1 + 2·dim
-    streams; per hidden neuron tanh, tanh' (2), a = −2·v·tanh' (2), dim
-    tangent products and per second-order stream a·z_g·z_g + tanh'·z_h
-    (4, 2 at layer 0 where z_h is zero)."""
-    S = 1 + 2 * dim
-    L = len(widths) - 1
-    f = 0
-    for l in range(L):
-        wi, wo = widths[l], widths[l + 1]
-        f += (2 * wi * wo if l == 0 else 2 * S * wi * wo) + wo
-        if l < L - 1:
-            f += wo * (1 + 2 + 2 + dim + dim * (2 if l == 0 else 4))
-    return f
+    return sum(bundle_work_split(widths, dim).values())
 
 
 def sass_counts(lib_path):
@@ -277,28 +331,13 @@ def sass_counts(lib_path):
     of the built library (instances named by their template arguments:
     Id / If for float64 / float32, then d_in and dim); None where the
     toolkit has no cuobjdump."""
-    import re
-    import shutil
+    from tpinn_torch.kernels import build
 
-    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
-    if not os.path.exists(tool):
-        return None
-    out = subprocess.run([tool, "-sass", lib_path], capture_output=True,
-                         text=True, check=True).stdout
-    counts, name = {}, None
-    for line in out.splitlines():
-        m = re.search(r"Function : \S*taylor_bundle_kernelI(\w)Li(\d)ELi(\d)E",
-                      line)
-        if m:
-            name = f"I{m.group(1)} d_in {m.group(2)} dim {m.group(3)}"
-            counts[name] = {"DMMA": 0, "HMMA": 0}
-        elif "Function :" in line:
-            name = None
-        elif name is not None:
-            for op in ("DMMA", "HMMA"):
-                if re.search(rf"\b{op}\b", line):
-                    counts[name][op] += 1
-    return counts
+    counts = build.sass_op_counts(
+        lib_path, r"Function : \S*taylor_bundle_kernelI(\w)Li(\d)ELi(\d)E",
+        ("DMMA", "HMMA"))
+    return None if counts is None else {
+        f"I{t} d_in {d_in} dim {dim}": v for (t, d_in, dim), v in counts.items()}
 
 
 def bundle_problem(widths, n, seed, dtype, device):
@@ -1752,6 +1791,232 @@ def main():
         record["cosine_adam"] = {"launches": cos_launches, "dev": d_cos,
                                  "ms_per_epoch": cos_ms}
 
+    with phase("22 the slice at full width: Cavity_Unsteady, Adam 100 + "
+               "BFGS 20, float64"):
+        import warnings
+
+        from tpinn_torch import utils
+        from tpinn_torch.cases import cavity_unsteady
+        from tpinn_torch.losses import PrecomputedMeanSquares
+        from tpinn_torch.oracles import cavity
+
+        # the exact data: the cavity oracle on the card at the case's size
+        # (n = 100, 100 output steps of 5 projection steps), its host
+        # synchronisations counted by the oracle and by torch's debug mode
+        cg = cavity.CGCounts()
+        with tempfile.TemporaryDirectory() as td, \
+                warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("warn")
+            t0 = time.perf_counter()
+            try:
+                exact = cavity_unsteady.load_exact(td, device="cuda",
+                                                   counts=cg)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            oracle_s = time.perf_counter() - t0
+        oracle_syncs = sum("synchroniz" in str(w.message) for w in caught)
+        cg_its = cg.iterations()
+        n_xy = 101 ** 2
+        print(f"  oracle on the card: {oracle_s:.2f} s for {len(cg_its)} "
+              f"projection steps; CG iterations per step mean "
+              f"{np.mean(cg_its):.1f}, max {max(cg_its)}, total "
+              f"{sum(cg_its)}; host reads {cg.syncs} (sync debug mode "
+              f"{oracle_syncs}), {cg.syncs / len(cg_its):.2f} per step")
+        if (len(cg_its) != 500 or max(cg_its) >= cavity.CG_MAXITER
+                or any(a.shape != (100 * n_xy,) for a in exact)
+                or not all(np.isfinite(a).all() for a in exact)
+                or np.max(exact[0][99 * n_xy:]) != 1.0
+                or np.any(exact[0][:n_xy] != 0.0)):
+            raise AssertionError("cavity oracle on the card failed")
+
+        cav = {}
+        for device in ("cuda", "cpu"):
+            with tempfile.TemporaryDirectory() as td:
+                mb.reset_launch_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                drv = cavity_unsteady.main(
+                    epochs=CAVITY_ITERS, base_dir=td, second_round="scipy",
+                    seed=0, device=device, adam_epochs=100,
+                    exact_data=exact, dtype=torch.float64)
+                torch.cuda.synchronize()
+                cav[device] = (drv, dict(mb.LAUNCHES),
+                               time.perf_counter() - t0,
+                               sorted(os.listdir(drv.folder)))
+        (cv_gpu, cav_launches, cv_wall, cv_files), (cv_cpu, _, cv_cpu_wall,
+                                                    _) = cav["cuda"], cav["cpu"]
+        hv, hvr = cv_gpu.pb.history, cv_cpu.pb.history
+        cvc = cv_gpu.pb.bfgs_counts
+        i_adam = [i for i, r in enumerate(hv.rounds_idx) if r == 1]
+        d_cv_adam = rel_dev(hvr, hv, i_adam)
+        d_cv = rel_dev(hvr, hv, list(range(len(hv.iters))))
+        d_cv_final = abs(hv.loss_global[-1] / hvr.loss_global[-1] - 1.0)
+        cv_adam_ms = 1e3 * hv.wall_times[0] / 100
+        cv_bfgs_ms = 1e3 * hv.wall_times[1] / cvc["iterations"]
+        fused = all(isinstance(l, PrecomputedMeanSquares)
+                    for l in cv_gpu.losses[:3])
+        print(f"  losses {[l.name for l in cv_gpu.losses]}; widths "
+              f"{cv_gpu.model.layer_sizes}; fused PDE losses {fused}; "
+              f"launches {cav_launches}; {cvc}; variant "
+              f"{cv_gpu.pb.last_opt_state['kind']}; loss_global "
+              f"{hv.loss_global[0]:.6e} -> {hv.loss_global[-1]:.6e}; against "
+              f"the CPU: Adam logs {d_cv_adam:.2e}, every log (BFGS "
+              f"iterations 0-{CAVITY_ITERS}) {d_cv:.2e}, final global loss "
+              f"{d_cv_final:.2e} apart; {cv_adam_ms:.2f} ms per Adam epoch, "
+              f"{cv_bfgs_ms:.2f} ms per BFGS iteration; wall {cv_wall:.2f} s "
+              f"(CPU {cv_cpu_wall:.2f} s); final test losses "
+              f"{cv_gpu.final_test_losses()}; files {cv_files}")
+        if (hv.round_names != ["keras_Adam", "jax_BFGS"] or not fused
+                or cv_gpu.model.layer_sizes != (3, 32, 32, 32, 3)
+                or hv.iters != hvr.iters
+                or cav_launches["ns_residual_bwd"] != 100 + cvc["evaluations"]
+                or cav_launches["ns_residual_fwd"] != len(hv.iters)
+                or cav_launches["taylor_bundle"]
+                or not np.isfinite(logs(hv)).all()
+                or not hv.loss_global[-1] < hv.loss_global[0]
+                or d_cv_adam > HISTORY_BAR or d_cv > HISTORY_BAR
+                or d_cv_final > FINAL_LOSS_BAR):
+            raise AssertionError("Cavity_Unsteady round failed")
+        want = {"History_Loss.json", "Model.json", "Test_Options.txt",
+                "checkpoint.pkl"}
+        if utils.has_module("matplotlib"):
+            want |= {f"Graphic_{i}_of_5.jpg" for i in range(1, 6)}
+        if not (want <= set(cv_files) and ({"Weights.npz", "Weights.h5"}
+                                            & set(cv_files))):
+            raise AssertionError(f"Cavity_Unsteady artifacts {cv_files}")
+        record["cavity_unsteady"] = {
+            "oracle_s": oracle_s, "oracle_steps": len(cg_its),
+            "cg_iterations": sum(cg_its), "cg_max": max(cg_its),
+            "oracle_syncs": cg.syncs, "oracle_syncs_debug": oracle_syncs,
+            "launches": cav_launches, "counts": cvc,
+            "dev_adam": d_cv_adam, "dev": d_cv, "final_loss_rel": d_cv_final,
+            "ms_per_adam_epoch": cv_adam_ms, "ms_per_bfgs_iteration":
+            cv_bfgs_ms, "wall_s": cv_wall, "cpu_wall_s": cv_cpu_wall,
+            "test_losses": cv_gpu.final_test_losses(), "files": cv_files}
+
+    with phase("23 the cavity oracle, card against CPU, n = 32, 20 steps"):
+        runs = {}
+        for device in ("cuda", "cpu"):
+            cg = cavity.CGCounts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = cavity.solve_cavity_unsteady(n=32, t_end=2e-3, dt_out=1e-4,
+                                               device=device, counts=cg)
+            runs[device] = (out, cg.iterations(), time.perf_counter() - t0)
+        ((tg, snaps_g), its_g, s_g), ((tc, snaps_c), its_c, s_c) = (
+            runs["cuda"], runs["cpu"])
+        d_or = max(float(np.max(np.abs(a - b)) / max(np.max(np.abs(a)),
+                                                      1e-300))
+                   for sc, sg in zip(snaps_c, snaps_g) for a, b in zip(sc, sg))
+        print(f"  card {s_g:.2f} s, CPU {s_c:.2f} s; CG iterations equal: "
+              f"{its_g == its_c} ({sum(its_g)} in {len(its_g)} solves); max "
+              f"|Δ| / max|field| {d_or:.2e}")
+        if (its_g != its_c or len(its_g) != 20 or d_or > ORACLE_BAR
+                or not np.array_equal(tg, tc)):
+            raise AssertionError("cavity oracle card vs CPU failed")
+        record["cavity_oracle"] = {"dev": d_or, "cg_iterations": sum(its_g),
+                                   "card_s": s_g, "cpu_s": s_c}
+
+    with phase("24 the roofline probe: five bodies vs plain, SASS, rates"):
+        from tpinn_torch.kernels import roofline_probe as rp
+
+        probe_err = {b: 0.0 for b in rp.BODIES}
+        for dtype, bar in ((torch.float64, 1e-12), (torch.float32, 1e-5)):
+            for S in rp.STREAMS:
+                for C in rp.CHUNKS:
+                    w, s = rp.inputs(S, C, 7, dtype, dev, seed=S + C)
+                    for body in rp.BODIES:
+                        got = rp.probe(body, w, s, PROBE_CHECK_REPS)
+                        ref = rp.PLAIN[body](w, s, PROBE_CHECK_REPS)
+                        scale = float(ref.abs().max())
+                        err = float((got - ref).abs().max())
+                        if (err > bar * scale or not torch.equal(
+                                rp.probe(body, w, s, PROBE_CHECK_REPS), got)):
+                            raise AssertionError(
+                                f"probe {body} {dtype} S {S} C {C}: max "
+                                f"|Δ| {err:.3e} of max|ref| {scale:.3e}")
+                        if dtype == torch.float64:
+                            probe_err[body] = max(probe_err[body], err)
+        print(f"  every body against its plain version (S 5, 6; C 8, 16, "
+              f"32; {PROBE_CHECK_REPS} reps): max |Δ| float64 {probe_err}")
+        sass = rp.sass_counts(build.last_build().paths["roofline_probe.cu"]
+                              if build.last_build() else
+                              build.build().paths["roofline_probe.cu"])
+        if sass is not None:
+            bad = {k: rp.sass_problems(k, v) for k, v in sass.items()
+                   if rp.sass_problems(k, v)}
+            print("  SASS per instance (DMMA, DFMA, FFMA, HMMA), S 5, C 8: "
+                  + "; ".join(f"{k[0]} {k[1]}: {v}" for k, v in sass.items()
+                              if k[2] == 5 and k[3] == 8))
+            if bad or len(sass) != len(rp.BODIES) * 2 * 2 * 3:
+                raise AssertionError(f"probe SASS not as expected: {bad}")
+        else:
+            print("  no cuobjdump: SASS not counted")
+        chunk = rp.default_chunk()
+        rp.reset_launch_counts()
+        probe_rows = {}
+        for dname in ("float64", "float32"):
+            for S in rp.STREAMS:
+                for body in rp.BODIES:
+                    r = rp.measure(body, getattr(torch, dname), S, chunk,
+                                   PROBE_REPS, PROBE_OUTER, repeats=3)
+                    probe_rows[(body, dname, S)] = r
+                    print("  " + json.dumps(r))
+        probe_launches = dict(rp.LAUNCHES)
+        for (body, dname, S), r in probe_rows.items():
+            if body != "tanh_elems" and r["rate_per_sec"] > PEAK_FLOPS[dname]:
+                raise AssertionError(f"probe {body} {dname} reads an "
+                                     f"impossible rate {r['rate_per_sec']}")
+
+        def probe_rate(body, S=5):
+            return probe_rows[(body, "float64", S)]["rate_per_sec"]
+
+        # each kernel's operations split into products (the layer products
+        # at the fwd_dot rate, the dW contractions at the gram_dot rate),
+        # tanh elements and the other elementwise work (at the vpu_fma rate),
+        # over the probe's float64 rates at the kernel's stream count
+        def attainable_ms(work_split, n, S):
+            return 1e3 * n * (work_split["dot"] / probe_rate("fwd_dot", S)
+                              + work_split["gram"] / probe_rate("gram_dot", S)
+                              + work_split["fma"] / probe_rate("vpu_fma", S)
+                              + work_split["tanh"]
+                              / probe_rate("tanh_elems", S))
+
+        attain = {
+            "ns_residual_bwd": attainable_ms(
+                ns_work_split((2,) + WIDTHS + (3,), 2, True), 1000, 5),
+            "ns_residual_fwd": attainable_ms(
+                ns_work_split((2,) + WIDTHS + (3,), 2, False), 1000, 5),
+            "poisson_residual_bwd": attainable_ms(
+                poisson_work_split(POISSON_WIDTHS, True), 200, 5),
+            "poisson_residual_fwd": attainable_ms(
+                poisson_work_split(POISSON_WIDTHS, False), 200, 5),
+            "taylor_bundle": attainable_ms(
+                bundle_work_split((2,) + WIDTHS + (3,), 2), 1000, 5),
+            "ns_residual_bwd d_in 3, n 10000": attainable_ms(
+                ns_work_split((3,) + WIDTHS + (3,), 3, True), 10_000, 6),
+        }
+        print("  attainable bound at the main shapes from the probe's "
+              "float64 rates, ms: " + ", ".join(f"{k} {v:.5f}"
+                                                 for k, v in attain.items()))
+        # the plain versions' time for one launch's work, on the card
+        plain_ms = {}
+        for body in rp.BODIES:
+            w, s = rp.inputs(5, chunk, rp.TILES, torch.float64, dev)
+            plain_ms[body] = cuda_ms(
+                lambda: rp.PLAIN[body](w, s, PROBE_REPS), 1, reps=3,
+                warmup=1)
+        print(f"  plain versions, ms per launch's work (float64, S 5): "
+              f"{plain_ms}")
+        record["roofline_probe"] = {
+            "rows": [dict(r) for r in probe_rows.values()],
+            "errors": probe_err, "sass": {" ".join(map(str, k)): v for k, v
+                                          in (sass or {}).items()},
+            "attainable_ms": attain, "plain_ms": plain_ms,
+            "launches": probe_launches}
+
     # launches on each path that runs the kernel, each read around its run;
     # "launches" is the count on the main path of the kernel's slice
     paths = {"4 Poiseuille Adam": launches,
@@ -1762,7 +2027,8 @@ def main():
              "19 Poiseuille Adam + L-BFGS": lbfgs_launches,
              "20 colliding flow Adam + BFGS": cf_launches,
              "20 Poisson Adam + L-BFGS": p_lbfgs_launches,
-             "21 Poiseuille cosine Adam": cos_launches}
+             "21 Poiseuille cosine Adam": cos_launches,
+             "22 Cavity_Unsteady Adam + BFGS (d_in 3)": cav_launches}
 
     def kernel_row(name, key, route_src, replaces, main, row, n):
         d_ms, per_call, _ = dev_t[(name, n)]
@@ -1773,6 +2039,7 @@ def main():
                 "bound_ms": row[f"{key}_bound"],
                 "bound_by": row[f"{key}_bound_by"], "library_ms": None,
                 "device_ms": d_ms, "launches_per_call": per_call,
+                "bound_probe_ms": attain[name],
                 "launches_by_path": {k: v[name] for k, v in paths.items()
                                      if v[name]}}
 
@@ -1801,8 +2068,27 @@ def main():
         "plain_ms": b_row["plain"], "bound_ms": b_row["bound"],
         "bound_by": b_row["bound_by"], "library_ms": None,
         "device_ms": b_dev, "launches_per_call": b_per_call,
+        "bound_probe_ms": attain["taylor_bundle"],
         "launches_by_path": {k: v["taylor_bundle"] for k, v in paths.items()
                              if v["taylor_bundle"]}})
+    # the probe's bodies: a measurement entry point, on no slice's path;
+    # "launches" counts phase 24's rate runs, the times are float64, S 5
+    for body in rp.BODIES:
+        r = probe_rows[(body, "float64", 5)]
+        per = r["tiles"] * r["streams"] * r["width"] * r["chunk"]
+        n_ops = rp.work(body, r["chunk"], 5, r["reps"]) * r["tiles"]
+        b_ms, b_by = bound(n_ops, 8 * (2 * per + 32 * 32), "float64")
+        kernels.append({
+            "name": f"roofline_{body}", "route": "cuda", "source": rp.SOURCE,
+            "replaces": rp.REPLACES[body],
+            "launches": probe_launches[body],
+            "max_abs_err": probe_err[body],
+            "ms": 1e3 * r["seconds"] / r["outer"], "plain_ms": plain_ms[body],
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": (None if r["library_seconds"] is None
+                           else 1e3 * r["library_seconds"] / r["outer"]),
+            "rate_per_sec": r["rate_per_sec"],
+            "launches_by_path": {"24 roofline probe": probe_launches[body]}})
     total = time.perf_counter() - t_all
     print(f"total {total:.1f} s")
     if args.out:

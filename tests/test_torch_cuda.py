@@ -8,7 +8,10 @@ short round of each slice on the card against the CPU; the dense BFGS
 round on the card (against the CPU, one kernel-1 launch per evaluation,
 bit-identical repeats, and an exact resume from its run folder); the
 L-BFGS round on the card (against the CPU, a bit-identical repeat, one
-kernel-1 launch per line-search trial).
+kernel-1 launch per line-search trial); the roofline probe's kernels
+against their plain versions and their SASS; the cavity oracle on the card
+against the CPU; an unsteady round through kernels 1/2 at d_in 3 against
+the CPU.
 
 This file imports neither JAX nor tpinn, so it runs on the machine with the
 card, where those are not installed; the repo's conftest files import JAX,
@@ -551,3 +554,113 @@ def test_lbfgs_one_kernel_launch_per_trial(cuda, tmp_path):
         == counts["trials"] + 1
     assert mb.LAUNCHES["ns_residual_fwd"] == len(drv.pb.history.iters)
     assert mb.LAUNCHES["taylor_bundle"] == 0
+
+
+# ---------------------------------------------------------------------------
+# the roofline probe's kernels, the cavity oracle and the unsteady path
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,bar", [(torch.float64, 1e-12),
+                                       (torch.float32, 1e-5)])
+def test_roofline_probe_matches_plain_on_card(cuda, dtype, bar):
+    """Every probe body, S 5 and 6, C 8, 16 and 32, against its plain
+    version on the card (max |Δ| within bar·max|ref|; 8 reps keep float32
+    chains normal), and a repeat bit-identical."""
+    from tpinn_torch.kernels import roofline_probe as rp
+
+    for S in rp.STREAMS:
+        for C in rp.CHUNKS:
+            w, s = rp.inputs(S, C, 7, dtype, cuda, seed=S + C)
+            for body in rp.BODIES:
+                got = rp.probe(body, w, s, 8)
+                ref = rp.PLAIN[body](w, s, 8)
+                scale = float(ref.abs().max())
+                err = float((got - ref).abs().max())
+                assert err <= bar * scale, (body, S, C, err, scale)
+                assert torch.equal(rp.probe(body, w, s, 8), got)
+
+
+@pytest.mark.cuda
+def test_roofline_probe_sass_counts(cuda):
+    """Each instance's DMMA / DFMA / FFMA as expected_sass says (one rep's
+    in float64, whole unrolled steps in float32), no HMMA (TF32)."""
+    from tpinn_torch.kernels import build
+    from tpinn_torch.kernels import roofline_probe as rp
+
+    build.library("roofline_probe.cu")
+    counts = rp.sass_counts(build.last_build().paths["roofline_probe.cu"])
+    if counts is None:
+        pytest.skip("the toolkit has no cuobjdump")
+    assert len(counts) == len(rp.BODIES) * 2 * len(rp.STREAMS) * len(rp.CHUNKS)
+    for key, got in counts.items():
+        assert rp.sass_problems(key, got) == [], (key, got)
+
+
+@pytest.mark.cuda
+def test_cavity_oracle_on_card_matches_cpu(cuda):
+    """n = 32 over 20 output steps: every field within 1e-9·max|field| and
+    the same CG iterations in every pressure solve."""
+    from tpinn_torch.oracles import cavity
+
+    runs = {}
+    for device in (cuda, "cpu"):
+        counts = cavity.CGCounts()
+        runs[str(device)] = (cavity.solve_cavity_unsteady(
+            n=32, t_end=2e-3, dt_out=1e-4, device=device, counts=counts),
+            counts.iterations())
+    (t_g, snaps_g), its_g = runs[str(cuda)]
+    (t_c, snaps_c), its_c = runs["cpu"]
+    assert its_g == its_c and len(its_g) == 20
+    np.testing.assert_array_equal(t_g, t_c)
+    for a, b in zip(snaps_c, snaps_g):
+        for fa, fb in zip(a, b):
+            assert np.max(np.abs(fa - fb)) <= 1e-9 * max(np.max(np.abs(fa)),
+                                                         1e-300)
+
+
+@pytest.mark.cuda
+def test_unsteady_round_on_card_matches_cpu(cuda, tmp_path):
+    """The unsteady path at small options (3-32-32-32-3, a decaying vortex
+    as exact solution on 10 slices of a 21 × 21 grid): Adam 10 + BFGS 5
+    through kernels 1/2 at d_in 3 on the card against the CPU within 1e-8,
+    one kernel-1 launch per value and gradient."""
+    from tpinn_torch.config import SimulationOptions
+    from tpinn_torch.driver import CaseSpec, StandardNSDriver
+
+    def vortex(k, c):
+        def f(q):
+            decay = torch.exp(-k * np.pi ** 2 * q[:, 0])
+            x, y = np.pi * q[:, 1], np.pi * q[:, 2]
+            return c(x, y) * decay
+        return f
+
+    u = vortex(2, lambda x, y: -torch.cos(x) * torch.sin(y))
+    v = vortex(2, lambda x, y: torch.sin(x) * torch.cos(y))
+    p = vortex(4, lambda x, y: -0.25 * (torch.cos(2 * x) + torch.cos(2 * y)))
+    spec = CaseSpec(name="Vortex", extents=[(0.0, 1.0), (0.0, 1.0)],
+                    grid_shape=(20, 20),
+                    physics=NSPhysics(conv=1.0, visc=1.0, time=1.0),
+                    exact=(u, v, p),
+                    bnd_val={0: {e: u for e in ("BOT", "DX", "TOP", "SX")},
+                             1: {e: v for e in ("BOT", "DX", "TOP", "SX")}},
+                    weights={"PDE_MASS": 1e1}, unsteady=True,
+                    time_horizon=1e-2, dt=1e-3)
+    opts = SimulationOptions(epochs=5, noise_fit=0.05, noise_bnd=0.05,
+                             n_pde=500, n_bc=50, n_ic=50, n_vel=20, n_pres=0,
+                             n_test=100)
+    runs = {}
+    for device in (cuda, "cpu"):
+        mb.reset_launch_counts()
+        drv = StandardNSDriver(spec, opts, base_dir=str(tmp_path),
+                               save_results=False, device=device,
+                               second_round="jax-bfgs", adam_epochs=10)
+        drv.train(callbacks=False)
+        runs[str(device)] = (drv, dict(mb.LAUNCHES))
+    (gpu, launches), (cpu, _) = runs[str(cuda)], runs["cpu"]
+    h, hc = gpu.pb.history, cpu.pb.history
+    assert h.iters == hc.iters
+    a, b = _logs(h), _logs(hc)
+    assert np.max(np.abs(a - b) / np.abs(b)) < 1e-8
+    assert launches["ns_residual_bwd"] == 10 + gpu.pb.bfgs_counts["evaluations"]
+    assert launches["ns_residual_fwd"] == len(h.iters)

@@ -132,11 +132,16 @@ def test_driver_from_seed_is_reproducible(tmp_path):
 
 
 def test_driver_refuses_unported_options(tmp_path, monkeypatch):
+    # the unsteady path runs; exact data that does not cover its grid raises
     spec, opts = pf_torch.build_spec(), pf_torch.default_options()
-    spec.unsteady = True
-    with pytest.raises(NotImplementedError, match="unsteady.*item 6"):
+    spec.unsteady, spec.time_horizon, spec.dt = True, 1e-2, 1e-3
+    spec.exact_data = tuple(np.zeros(10) for _ in range(3))
+    with pytest.raises(ValueError, match="exact_data"):
         StandardNSDriver(spec, opts, base_dir=str(tmp_path), device="cpu",
                          second_round="jax")
+    spec.exact = spec.exact_data = None
+    with pytest.raises(ValueError, match="exact callables or exact_data"):
+        StandardNSDriver(spec, opts, base_dir=str(tmp_path), device="cpu")
     spec = pf_torch.build_spec()
     spec.pressure_gauge = "median"
     with pytest.raises(ValueError, match="pressure_gauge"):

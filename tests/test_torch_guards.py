@@ -47,6 +47,8 @@ _LAZY_IMPORTS = {
     os.path.join("tpinn_torch", "viz.py"): {"_plt": "matplotlib"},
     os.path.join("tpinn_torch", "models.py"): {
         "save_weights": "h5py", "load_weights": "h5py"},
+    os.path.join("tpinn_torch", "oracles", "io.py"): {
+        "write_fields": "h5py", "read_fields": "h5py"},
 }
 
 
@@ -65,7 +67,8 @@ def test_port_file_has_no_forbidden_import(path):
     """No port file imports JAX, optax, h5py, matplotlib or tpinn; the
     exceptions are matplotlib inside ``utils._plot_history_dict`` and
     ``viz._plt`` and h5py inside ``Model.save_weights`` /
-    ``Model.load_weights``, each imported when a figure or an HDF5 file is
+    ``Model.load_weights`` and the oracle's ``io.write_fields`` /
+    ``io.read_fields``, each imported when a figure or an HDF5 file is
     written or read (never on the training path)."""
     with open(os.path.join(_REPO, path)) as f:
         text = f.read()
@@ -157,6 +160,37 @@ def test_nisaba_namespace():
     for name in ("gradient_scalar", "divergence_vector", "laplacian_scalar",
                  "laplacian_vector"):
         assert callable(getattr(ops, name)), name
+
+
+def test_namespace_has_every_name_of_tpinn():
+    """In a fresh interpreter ``import tpinn_torch as ns`` has every name of
+    tpinn's ``__all__`` but ``sharding`` (not ported yet), e.g.
+    ``ns.driver.run_second_round`` and ``ns.checkpoint.save_experiment``,
+    and loads neither matplotlib nor h5py.  tpinn's list is read from its
+    source, so that this test imports no JAX."""
+    import ast
+
+    with open(os.path.join(_REPO, "tpinn", "__init__.py")) as f:
+        tree = ast.parse(f.read())
+    names = next(ast.literal_eval(node.value) for node in tree.body
+                 if isinstance(node, ast.Assign)
+                 and getattr(node.targets[0], "id", None) == "__all__")
+    names = [n for n in names if n != "sharding"]
+    assert "driver" in names and "checkpoint" in names
+    code = (
+        "import sys, tpinn_torch as ns\n"
+        f"missing = [n for n in {names!r} if not hasattr(ns, n)]\n"
+        "missing += [n for n in ns.__all__ if not hasattr(ns, n)]\n"
+        "ns.driver.run_second_round, ns.driver.SECOND_ROUND_CHOICES\n"
+        "ns.checkpoint.save_experiment\n"
+        "loaded = [m for m in ('matplotlib', 'h5py') if m in sys.modules]\n"
+        "print(missing, loaded)\n"
+        "sys.exit(1 if missing or loaded else 0)\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=_REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
 
 
 def test_cases_refuse_to_run_silently_on_the_cpu(tmp_path, monkeypatch):

@@ -14,15 +14,27 @@ reference's (``import tpinn_torch as ns``):
     ns.OptimizationProblem(model.variables, losses, losses_test)
     ns.minimize(pb, "keras" | "scipy" | "jax", ...)
     ns.models.MLP, ns.optimizers.Adam, ns.utils.plot_history
+    ns.driver.run_second_round, ns.checkpoint.save_experiment
+
+matplotlib and h5py stay unimported until a figure or an HDF5 file is
+written or read.
 """
 
+from tpinn_torch import checkpoint
 from tpinn_torch import config
+from tpinn_torch import driver
+from tpinn_torch import experiment
 from tpinn_torch import experimental
 from tpinn_torch import geometry
+from tpinn_torch import history
 from tpinn_torch import models
+from tpinn_torch import operators
 from tpinn_torch import optimizers
 from tpinn_torch import oracles
+from tpinn_torch import pipeline
+from tpinn_torch import profiling
 from tpinn_torch import utils
+from tpinn_torch import viz
 from tpinn_torch.config import SimulationOptions, get_dtype, set_dtype
 from tpinn_torch.losses import Loss, LossMeanSquares
 from tpinn_torch.optimize import minimize
@@ -45,4 +57,12 @@ __all__ = [
     "geometry",
     "oracles",
     "experimental",
+    "operators",
+    "history",
+    "checkpoint",
+    "experiment",
+    "viz",
+    "pipeline",
+    "driver",
+    "profiling",
 ]

@@ -16,9 +16,11 @@
  12  grouped loss-trend figure      → tpinn_torch.viz.plot_loss_groups
  13  Test_Options.txt recap         → tpinn_torch.experiment.write_recap
 
-This port covers the steady case on one device with the Adam round and
-every second round of the JAX package's routing table
-(``run_second_round``: dense BFGS, L-BFGS, host scipy, Levenberg–Marquardt
+This port covers the steady case and the unsteady space-time case (input
+(t, x, y), the grid t slowest, an ∂t term in the momentum residual, the
+t = 0 losses IC_u/IC_v/IC_p and, with ``exact_data``, per-slice figures)
+on one device with the Adam round and every second round of the JAX
+package's routing table (``run_second_round``: dense BFGS, L-BFGS, host scipy, Levenberg–Marquardt
 and the cosine-decay Adam round), the pressure gauge (a ``Fit_p`` or a
 ``PRESS_0`` loss), the run artifacts and ``train(resume_from=...)``, which
 continues a saved run exactly (the BFGS carry comes back from
@@ -49,8 +51,10 @@ from tpinn_torch.config import SimulationOptions
 from tpinn_torch.geometry import (
     Normalization,
     generate_noise,
+    initial_condition_points,
     rect_boundary_points,
     rect_grid,
+    space_time_grid,
     split_indices,
 )
 from tpinn_torch.history import History
@@ -64,6 +68,7 @@ from tpinn_torch.pipeline import (
     ResidualBundle,
     dirichlet_point_residual,
     dirichlet_residual,
+    initial_condition_residual,
     mass_residual,
     momentum_residual,
     neumann_point_residual,
@@ -137,20 +142,26 @@ class CaseSpec:
     extents: Sequence[Tuple[float, float]]
     physics: NSPhysics = NSPhysics()
     grid_shape: Tuple[int, int] = (100, 100)
-    # exact solution: callables (u, v, p)(points) -> (N,)
+    # exact solution: callables (u, v, p)(points) -> (N,), or arrays on the
+    # grid's rows (unsteady: one spatial slice after another, t slowest)
     exact: Optional[Tuple[Callable, Callable, Callable]] = None
+    exact_data: Optional[Tuple[np.ndarray, np.ndarray, np.ndarray]] = None
     # Dirichlet boundary values per component {0: {edge: value}, 1: {...}}
     # value: float | callable(points)->(N,) | None
     bnd_val: Optional[Dict[int, Dict[str, BndValue]]] = None
     # Neumann specs {(edge, component): direction}; rhs comes from bnd_val
     neumann: Dict[Tuple[str, int], object] = dataclasses.field(default_factory=dict)
     weights: Dict[str, float] = dataclasses.field(default_factory=dict)
-    unsteady: bool = False  # the unsteady path is not ported: raises
+    unsteady: bool = False  # input (t, x, y), t in [0, time_horizon)
+    time_horizon: float = 0.0
+    dt: float = 0.0  # the grid's time step
     width: int = 32
     depth: int = 3
     # the pressure gauge: None, "fit" (a Fit_p loss on the pressure split)
     # or "mean" (a PRESS_0 penalty on |mean p|)
     pressure_gauge: Optional[str] = None
+    # a steady grid of evenly spaced nodes, else of random x and y nodes
+    uniform_mesh: bool = True
 
     @property
     def dim_in(self) -> int:
@@ -176,10 +187,6 @@ class StandardNSDriver:
         dtype: Optional[torch.dtype] = None,
         arrays: Optional[dict] = None,
     ):
-        if spec.unsteady:
-            raise NotImplementedError(
-                "the unsteady driver path is not ported yet (ROADMAP.md, "
-                "port queue 1, item 6)")
         check_second_round(second_round)
         if spec.pressure_gauge not in (None, "fit", "mean"):
             raise ValueError(f"unknown pressure_gauge "
@@ -206,14 +213,15 @@ class StandardNSDriver:
                     bnd_pts: Dict[str, np.ndarray],
                     bnd_val_num: Dict[int, Dict[str, np.ndarray]],
                     sol_noise: Sequence[np.ndarray], params: Sequence[dict],
-                    **kw) -> "StandardNSDriver":
+                    ic_pts=None, **kw) -> "StandardNSDriver":
         """A driver on given data instead of its own random draws: the grid
         (N, d), the index splits {PDE, Vel, Pres, Test}, the boundary points
         per edge, the boundary values per component and edge, the noisy fit
-        targets [u, v, p] and the initial params (list of {kernel, bias})."""
+        targets [u, v, p], the initial params (list of {kernel, bias}) and,
+        unsteady, the t = 0 points (n_ic, 3)."""
         arrays = dict(dom_grid=dom_grid, idx_set=idx_set, bnd_pts=bnd_pts,
                       bnd_val_num=bnd_val_num, sol_noise=sol_noise,
-                      params=params)
+                      params=params, ic_pts=ic_pts)
         return cls(spec, opts, arrays=arrays, **kw)
 
     def _tensor(self, a) -> torch.Tensor:
@@ -224,24 +232,44 @@ class StandardNSDriver:
     def _build(self, arrays: Optional[dict]) -> None:
         spec, opts, dt = self.spec, self.opts, self.dtype
         gens = [torch.Generator().manual_seed(int(s)) for s in
-                np.random.SeedSequence(self.seed).generate_state(4)]
-        g_split, g_bnd, g_noise_b, g_noise_f = gens
+                np.random.SeedSequence(self.seed).generate_state(6)]
+        g_split, g_bnd, g_noise_b, g_noise_f, g_grid, g_ic = gens
 
         # stage 3: grid and splits
         if arrays is not None:
             dom_grid = torch.as_tensor(np.array(arrays["dom_grid"]), dtype=dt)
+        elif spec.unsteady:
+            # numpy's arange, as the reference: round(T/dt) slices that line
+            # up with exact_data row for row
+            (lx, ux), (ly, uy) = spec.extents
+            n1, n2 = spec.grid_shape
+            dom_grid = space_time_grid(
+                *(torch.as_tensor(v, dtype=dt) for v in (
+                    np.arange(0.0, spec.time_horizon, step=spec.dt),
+                    np.linspace(lx, ux, n1 + 1), np.linspace(ly, uy, n2 + 1))))
+        else:
+            dom_grid = rect_grid(spec.extents, spec.grid_shape, dt,
+                                 spec.uniform_mesh, g_grid)
+        if arrays is not None:
             self.idx_set = {k: np.array(v) for k, v in arrays["idx_set"].items()}
         else:
-            dom_grid = rect_grid(spec.extents, spec.grid_shape, dt)
             self.idx_set = split_indices(g_split, dom_grid.shape[0], opts.n_pts)
         self.dom_grid = dom_grid.to(self.device)
 
         # stage 4: exact solution on the grid
-        if spec.exact is None:
-            raise ValueError("CaseSpec needs the exact-solution callables")
-        u_ex, v_ex, p_ex = (torch.as_tensor(f(self.dom_grid), dtype=dt,
-                                            device=self.device)
-                            for f in spec.exact)
+        if spec.exact_data is not None:
+            fields = [torch.as_tensor(a, dtype=dt, device=self.device)
+                      for a in spec.exact_data]
+            if any(f.shape != (dom_grid.shape[0],) for f in fields):
+                raise ValueError(
+                    f"exact_data has {[tuple(f.shape) for f in fields]} "
+                    f"values; the grid has {dom_grid.shape[0]} rows")
+        elif spec.exact is not None:
+            fields = [torch.as_tensor(f(self.dom_grid), dtype=dt,
+                                      device=self.device) for f in spec.exact]
+        else:
+            raise ValueError("CaseSpec needs exact callables or exact_data")
+        u_ex, v_ex, p_ex = fields
         self.exact_fields = (u_ex, v_ex, p_ex)
 
         # stage 5: normalization
@@ -256,10 +284,18 @@ class StandardNSDriver:
             self.bnd_val_num = {c: {e: self._tensor(v) for e, v in d.items()}
                                 for c, d in arrays["bnd_val_num"].items()}
         else:
+            horizon = spec.time_horizon if spec.unsteady else None
             self.bnd_pts = {k: v.to(self.device) for k, v in
                             rect_boundary_points(g_bnd, spec.extents,
-                                                 opts.n_bc, dtype=dt).items()}
+                                                 opts.n_bc, horizon,
+                                                 dtype=dt).items()}
             self.bnd_val_num = self._boundary_values(g_noise_b)
+        self.ic_pts = None
+        if spec.unsteady and opts.n_ic:
+            self.ic_pts = (self._tensor(arrays["ic_pts"]) if arrays is not None
+                           else initial_condition_points(
+                               g_ic, spec.extents, opts.n_ic, dt
+                           ).to(self.device))
 
         # fitting targets with noise (stage 6)
         iv, ip = (torch.as_tensor(self.idx_set[k], device=self.device)
@@ -275,8 +311,10 @@ class StandardNSDriver:
             ]
 
         # stage 8: model, input extents folded into the layer-0 init
+        in_extents = (([(0.0, spec.time_horizon)] if spec.unsteady else [])
+                      + [tuple(e) for e in spec.extents])
         self.model = MLP(spec.dim_in, 3, width=spec.width, depth=spec.depth,
-                         seed=self.seed, input_extents=list(spec.extents),
+                         seed=self.seed, input_extents=in_extents,
                          dtype=dt, device=self.device)
         if arrays is not None:
             self.model.set_params([
@@ -390,6 +428,15 @@ class StandardNSDriver:
                             weight=spec.weight("BCD", 1e0),
                             point_residual=dir_pr(comp, xb, rhs)))
 
+        if spec.unsteady and opts.use_initialc and self.ic_pts is not None:
+            xi = self.ic_pts
+            for comp, name in enumerate(("IC_u", "IC_v", "IC_p")):
+                losses.append(LMS(
+                    name, (lambda c=comp:
+                           initial_condition_residual(model, xi, c, 0.0)),
+                    weight=spec.weight("IC", 1e0),
+                    point_residual=dir_pr(comp, xi, 0.0)))
+
         x_vel = take(self.idx_set["Vel"])
         if opts.fit_velocity:
             fit_u, fit_v = self.sol_noise[0], self.sol_noise[1]
@@ -495,12 +542,22 @@ class StandardNSDriver:
             pb.history.register_losses(self.losses, self.losses_test)
 
     # ----------------------------------------------------------------- output
+    def _grid_points(self, gx, gy) -> np.ndarray:
+        """The points of a spatial grid; unsteady, at the final time
+        slice."""
+        cols = [gx.reshape(-1), gy.reshape(-1)]
+        if self.spec.unsteady:
+            t_final = self.spec.time_horizon - self.spec.dt
+            cols = [np.full(gx.size, t_final)] + cols
+        return np.stack(cols, axis=-1)
+
     def predict_grid(self, n: int = 100):
-        """The model on an n×n regular grid of the spatial extents,
-        de-normalized: (gx, gy, u, v, p) as numpy arrays."""
+        """The model on an n×n regular grid of the spatial extents (unsteady:
+        at the final time slice), de-normalized: (gx, gy, u, v, p) as numpy
+        arrays."""
         (lx, ux), (ly, uy) = self.spec.extents
         gx, gy = np.meshgrid(np.linspace(lx, ux, n), np.linspace(ly, uy, n))
-        pts = np.stack([gx.reshape(-1), gy.reshape(-1)], axis=-1)
+        pts = self._grid_points(gx, gy)
         with torch.no_grad():
             out = self.model(pts).cpu().numpy()
         u = out[:, 0].reshape(gx.shape) * self.norm.norm_vel
@@ -511,17 +568,17 @@ class StandardNSDriver:
     def save_artifacts(self, loss_groups: Optional[Dict[str, list]] = None,
                        exact_grids=None) -> None:
         """Stages 10-13: the experiment (Model.json, weights, history,
-        checkpoint), the contour figure, the grouped loss plot and the
-        recap.  The figures need matplotlib."""
+        checkpoint), the contour figure (unsteady: at the final slice, and
+        with ``exact_data`` the per-slice figures of ``save_time_slices``),
+        the grouped loss plot and the recap.  The figures need
+        matplotlib."""
         folder = self.folder
         if folder is None or self.pb is None:
             raise RuntimeError("save_artifacts: call train() first")
         self.save_experiment()
         gx, gy, u, v, p = self.predict_grid()
         if exact_grids is None and self.spec.exact is not None:
-            pts = torch.as_tensor(
-                np.stack([gx.reshape(-1), gy.reshape(-1)], axis=-1),
-                dtype=self.dtype)
+            pts = torch.as_tensor(self._grid_points(gx, gy), dtype=self.dtype)
             exact_grids = tuple(
                 torch.as_tensor(f(pts)).cpu().numpy().reshape(gx.shape)
                 for f in self.spec.exact)
@@ -529,11 +586,47 @@ class StandardNSDriver:
             viz.contour_compare(gx, gy, exact_grids, (u, v, p),
                                 problem_name=self.spec.name,
                                 filename=os.path.join(folder, "Graphic.jpg"))
+        if self.spec.unsteady and self.spec.exact_data is not None:
+            self.save_time_slices(folder)
         if loss_groups:
             viz.plot_loss_groups(
                 self.pb.history.to_dict(), loss_groups,
                 filename=os.path.join(folder, "Loss_Trend_Reduced.png"))
         self.write_recap()
+
+    def save_time_slices(self, folder: str, n_time_stamp: int = 4) -> list:
+        """The unsteady case's exact-vs-PINN contour figures at
+        ``n_time_stamp + 1`` times evenly spaced over [0, T] (t = T taken at
+        the last stored slice), levels shared across the slices, the exact
+        pressure recentred per slice: ``Graphic_{i}_of_{n}.jpg``."""
+        spec = self.spec
+        T, dt = spec.time_horizon, spec.dt
+        n1, n2 = spec.grid_shape
+        n_xy = (n1 + 1) * (n2 + 1)
+        n_times = int(round(T / dt))
+        times = np.linspace(0.0, T, n_time_stamp + 1)
+        (lx, ux), (ly, uy) = spec.extents
+        gx, gy = np.meshgrid(np.linspace(lx, ux, n1 + 1),
+                             np.linspace(ly, uy, n2 + 1))
+        flat = np.stack([gx.reshape(-1), gy.reshape(-1)], axis=-1)
+        norms = (self.norm.norm_vel, self.norm.norm_vel, self.norm.norm_pre)
+        exact_slices, pinn_slices = [[], [], []], [[], [], []]
+        for t in times:
+            t_eff = T - dt if t >= T else t
+            k = int(round(t_eff / dt))
+            pts = np.concatenate([np.full((n_xy, 1), t_eff), flat], axis=1)
+            with torch.no_grad():
+                out = self.model(pts).cpu().numpy()
+            for comp in range(3):
+                ex = self.exact_fields[comp][k * n_xy:(k + 1) * n_xy]
+                ex = ex.cpu().numpy().reshape(n2 + 1, n1 + 1)
+                if comp == 2:
+                    ex = ex - ex.mean()
+                exact_slices[comp].append(ex)
+                pinn_slices[comp].append(
+                    out[:, comp].reshape(n2 + 1, n1 + 1) * norms[comp])
+        return viz.contour_time_slices(gx, gy, exact_slices, pinn_slices,
+                                       times, n_times, folder)
 
     def save_experiment(self) -> str:
         """Stage 10 alone: Model.json, the weights, History_Loss.json and

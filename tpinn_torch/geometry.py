@@ -3,7 +3,9 @@
 The shared sampling stages of the reference drivers: uniform tensor-product
 grids flattened row-major with x fastest, a random permutation split into
 disjoint {PDE, Vel, Pres, Test} index sets, per-edge uniform boundary
-sampling and gaussian noise.  Random draws come from explicit
+sampling, space-time grids ``(t, x, y)`` with t slowest and the t = 0
+initial-condition samples of the unsteady case, and gaussian noise.
+Random draws come from explicit
 ``torch.Generator``s on the CPU, so a seed gives the same points on every
 device; the tensors are then moved to the requested device.
 """
@@ -18,6 +20,18 @@ import torch
 from tpinn_torch import config
 
 
+def linspace_or_random(generator: Optional[torch.Generator], lo: float,
+                       hi: float, n: int, uniform: bool = True,
+                       dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """n nodes from lo to hi: evenly spaced (numpy's linspace) or, with
+    ``uniform`` off, uniform random draws."""
+    dtype = dtype or config.get_dtype()
+    if uniform:
+        return torch.as_tensor(np.linspace(lo, hi, n), dtype=dtype)
+    u = torch.rand(n, generator=generator, dtype=dtype)
+    return lo + u * (hi - lo)
+
+
 def tensor_grid(x_vec, y_vec) -> torch.Tensor:
     """Row-major (x fastest) 2-D tensor-product grid: (len(x)*len(y), 2)."""
     yy, xx = torch.meshgrid(torch.as_tensor(y_vec), torch.as_tensor(x_vec),
@@ -25,16 +39,30 @@ def tensor_grid(x_vec, y_vec) -> torch.Tensor:
     return torch.stack([xx.reshape(-1), yy.reshape(-1)], dim=-1)
 
 
+def space_time_grid(t_vec, x_vec, y_vec) -> torch.Tensor:
+    """(t, x, y) grid with t slowest, then y, then x: (len(t)·len(y)·len(x),
+    3), the reference's ordering, so row k·len(x)·len(y) + j·len(x) + i is
+    (t_k, x_i, y_j)."""
+    tt, yy, xx = torch.meshgrid(torch.as_tensor(t_vec), torch.as_tensor(y_vec),
+                                torch.as_tensor(x_vec), indexing="ij")
+    return torch.stack([tt.reshape(-1), xx.reshape(-1), yy.reshape(-1)],
+                       dim=-1)
+
+
 def rect_grid(extents: Sequence[Tuple[float, float]], shape: Sequence[int],
-              dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """Uniform 2-D rectangle grid with (n1+1)×(n2+1) nodes like the
-    reference.  numpy's linspace gives the JAX package's grid to the bit on
-    the Poiseuille and cavity extents, and within one ulp on others."""
+              dtype: Optional[torch.dtype] = None, uniform: bool = True,
+              generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """2-D rectangle grid with (n1+1)×(n2+1) nodes like the reference: a
+    uniform one, or with ``uniform`` off one of random x and y nodes drawn
+    from ``generator`` (x first).  numpy's linspace gives the JAX package's
+    uniform grid to the bit on the Poiseuille and cavity extents, and
+    within one ulp on others."""
     (lx, ux), (ly, uy) = extents
     n1, n2 = shape
-    dtype = dtype or config.get_dtype()
-    x_vec = torch.as_tensor(np.linspace(lx, ux, n1 + 1), dtype=dtype)
-    y_vec = torch.as_tensor(np.linspace(ly, uy, n2 + 1), dtype=dtype)
+    if not uniform and generator is None:
+        generator = torch.Generator().manual_seed(0)
+    x_vec = linspace_or_random(generator, lx, ux, n1 + 1, uniform, dtype)
+    y_vec = linspace_or_random(generator, ly, uy, n2 + 1, uniform, dtype)
     return tensor_grid(x_vec, y_vec)
 
 
@@ -83,6 +111,15 @@ def rect_boundary_points(
             mx = [time_horizon] + list(mx)
         out[name] = sample_box(generator, n_per_edge, mn, mx, dtype)
     return out
+
+
+def initial_condition_points(generator: torch.Generator,
+                             extents: Sequence[Tuple[float, float]], n: int,
+                             dtype: Optional[torch.dtype] = None
+                             ) -> torch.Tensor:
+    """n uniform samples of the t = 0 slice: (0, x, y) rows."""
+    (lx, ux), (ly, uy) = extents
+    return sample_box(generator, n, [0.0, lx, ly], [0.0, ux, uy], dtype)
 
 
 def generate_noise(generator: torch.Generator, n: int, factor: float = 0.0,

@@ -14,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -22,7 +23,8 @@ from typing import Dict, Optional
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
-SOURCES = ("ns_residual.cu", "poisson_residual.cu", "taylor_bundle.cu")
+SOURCES = ("ns_residual.cu", "poisson_residual.cu", "taylor_bundle.cu",
+           "roofline_probe.cu")
 HEADERS = ("taylor_mlp.cuh", "ptx.cuh")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)), ".cache",
                          "tpinn_torch")
@@ -58,6 +60,8 @@ _SIGNATURES = {
                           _P],
     "taylor_bundle_f32": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P,
                           _P],
+    "roofline_probe_f64": [_I, _I, _I, _I, _I, _P, _P, _P, _P],
+    "roofline_probe_f32": [_I, _I, _I, _I, _I, _P, _P, _P, _P],
 }
 
 
@@ -166,3 +170,38 @@ def library(source: str) -> ctypes.CDLL:
 
 def last_build() -> Optional[BuildInfo]:
     return _info
+
+
+def parse_sass(text: str, name_regex: str, ops) -> Dict[tuple, Dict[str, int]]:
+    """{groups of ``name_regex``: {op: count}} for each function of a
+    ``cuobjdump -sass`` listing whose ``Function :`` line matches
+    ``name_regex``; each op is counted once per instruction line naming it."""
+    name_re = re.compile(name_regex)
+    op_res = {op: re.compile(rf"\b{op}\b") for op in ops}
+    counts: Dict[tuple, Dict[str, int]] = {}
+    key = None
+    for line in text.splitlines():
+        m = name_re.search(line)
+        if m:
+            key = m.groups()
+            counts[key] = {op: 0 for op in ops}
+        elif "Function :" in line:
+            key = None
+        elif key is not None:
+            for op, op_re in op_res.items():
+                if op_re.search(line):
+                    counts[key][op] += 1
+    return counts
+
+
+def sass_op_counts(lib_path: str, name_regex: str,
+                   ops) -> Optional[Dict[tuple, Dict[str, int]]]:
+    """``parse_sass`` of a built library's ``cuobjdump -sass``; None where
+    the toolkit has no cuobjdump."""
+    tool = shutil.which("cuobjdump") or os.path.join(
+        os.environ.get("CUDA_HOME") or "/usr/local/cuda", "bin", "cuobjdump")
+    if not os.path.exists(tool):
+        return None
+    out = subprocess.run([tool, "-sass", lib_path], capture_output=True,
+                         text=True, check=True).stdout
+    return parse_sass(out, name_regex, ops)

@@ -185,6 +185,12 @@ def dirichlet_residual(model: Model, points: torch.Tensor, component: int,
     return model(points)[:, component] - rhs
 
 
+def initial_condition_residual(model: Model, points: torch.Tensor,
+                               component: int, rhs=0.0):
+    """u_k(points) − rhs at t = 0 points (the IC_u / IC_v / IC_p losses)."""
+    return dirichlet_residual(model, points, component, rhs)
+
+
 def pressure_mean_penalty(model: Model, points: torch.Tensor):
     """|mean p| over ``points``: the pressure-gauge penalty (PRESS_0, a
     ``Loss`` with ``non_negative=True``)."""

@@ -1,5 +1,6 @@
-"""The figures a steady case writes with its artifacts: the exact-vs-PINN
-contour grid (Graphic.jpg) and the grouped loss trend
+"""The figures a case writes with its artifacts: the exact-vs-PINN contour
+grid (Graphic.jpg), the unsteady case's per-time-slice grids
+(Graphic_{i}_of_{n}.jpg) and the grouped loss trend
 (Loss_Trend_Reduced.png); and the 3-D exact-vs-PINN scatter of the
 hand-rolled cases.
 
@@ -98,6 +99,44 @@ def _host(a) -> np.ndarray:
     if hasattr(a, "detach"):
         a = a.detach().cpu()
     return np.asarray(a)
+
+
+def contour_time_slices(grid_x, grid_y, exact_slices, pinn_slices, times,
+                        n_times: int, folder: str,
+                        titles: Sequence[str] = ("u-velocity", "v-velocity",
+                                                 "Pressure"),
+                        num_levels: int = 11) -> List[str]:
+    """The unsteady case's per-time-slice exact-vs-PINN contour figures,
+    ``Graphic_{i+1}_of_{n}.jpg`` in ``folder``, each field's levels shared
+    across every slice.  ``exact_slices`` / ``pinn_slices`` are per-field
+    lists of per-slice 2-D arrays."""
+    import os
+
+    plt = _plt()
+    n_stamps = len(times)
+    levels = [shared_levels(np.stack(ex), np.stack(pinn), num_levels)
+              for ex, pinn in zip(exact_slices, pinn_slices)]
+    paths = []
+    for i, t in enumerate(times):
+        title = "Solutions when t = {0:.4f}".format(t)
+        title += ", time step #{}/{}".format(
+            int(i * (n_times / max(n_stamps - 1, 1))), n_times)
+        fig, axes = plt.subplots(3, 2, figsize=(12, 8))
+        fig.suptitle(title, fontsize=18, y=0.97, x=0.50)
+        for row, name in enumerate(titles):
+            for col, (field, label) in enumerate(
+                    [(exact_slices[row][i], f"Numerical {name}"),
+                     (pinn_slices[row][i], f"PINNS {name}")]):
+                ax = axes[row][col]
+                ax.title.set_text(label)
+                cs = ax.contourf(grid_x, grid_y, field, levels=levels[row])
+                fig.colorbar(cs, ax=ax)
+        plt.tight_layout()
+        path = os.path.join(folder, f"Graphic_{i + 1}_of_{n_stamps}.jpg")
+        fig.savefig(path)
+        plt.close(fig)
+        paths.append(path)
+    return paths
 
 
 def plot_loss_groups(history: dict, groups: Dict[str, List[str]],
