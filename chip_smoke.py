@@ -129,7 +129,8 @@ exits non-zero:
    float64; the 100 × 101 × 101 space-time grid) through
    tpinn_torch.cases.cavity_unsteady.main: the exact data from the port's
    cavity oracle on the card (n = 100, 500 projection steps; its seconds,
-   CG iterations and host synchronisations printed), then Adam 100 and the
+   CG iterations and host synchronisations printed; writing the
+   regular-grid csv is timed apart), then Adam 100 and the
    default "scipy" round (the dense BFGS, 20 iterations) through kernels
    1/2 at d_in = 3, held against the same run on the CPU fed the card's
    oracle arrays (the Adam logs and every log to BFGS iteration 20 at 1e-8,
@@ -144,7 +145,32 @@ exits non-zero:
    each body's rate in float64 and float32 at the residual tile (C = 8)
    beside the same reps as PyTorch calls, no rate above the data sheet's
    peak, the plain versions' time, and the attainable bound of kernels 1-5
-   at their main shapes from the probe's float64 rates.
+   at their main shapes from the probe's float64 rates;
+25. the steady cavity oracle on the card through
+   tpinn_torch.oracles.generate.generate_cavity_steady at the case's
+   n_solver 128 and U 500, its march (13,150 projection steps to t_end 40)
+   cut to 4 blocks of 50 steps (t_end 0.5): its seconds, CG iterations per
+   step, host reads and the extrapolated seconds of the full march, the
+   files written; then card against CPU at n_solver 32 over one block of
+   50 steps (the fields and both csv files within 1e-9·max, the same CG
+   iterations);
+26. the steady slice at full width: Cavity_Steady at its reference options
+   (1,000 PDE and 1,000 boundary points, 100 velocity and 1 pressure
+   fitting points, 1,000 test points, 1 % noise; 2-32-32-32-3, float64) on
+   phase 25's data through tpinn_torch.cases.cavity_steady.main: Adam 100
+   then the default "scipy" round (the dense BFGS, 20 iterations) through
+   kernels 1/2, held against the same run on the CPU (the Adam logs and
+   every log to BFGS iteration 20 at 1e-8, the final global loss at 5 %),
+   one kernel-1 launch per value and gradient, the ms per Adam epoch and
+   per BFGS iteration, the run folder, and a ``load_from`` reload giving
+   the same test losses;
+27. the two old-style cavity scripts on the tape path (no residual kernel
+   launches): tpinn_torch.cases.cavity_steady_csv at its own sizes with
+   ``press_mode`` Mean and the save / load round trip (bit-identical
+   outputs), and tpinn_torch.cases.cavity_unsteady_old at its defaults on
+   phase 22's series (the regular-grid csv derived from it, timed), each
+   Adam 100 then the host scipy BFGS cut to 10 iterations, card against
+   CPU at phase 26's bars.
 
 The line before the last is the kernels' JSON record (each kernel's
 launches on every path that runs it, ``launches`` being its slice's main
@@ -207,6 +233,13 @@ ORACLE_BAR = 1e-9
 PROBE_CHECK_REPS = 8
 PROBE_REPS = 96
 PROBE_OUTER = 10
+# the steady oracle (phase 25): examples/Cavity_Steady's march (n_solver
+# 128, t_end 40, 13,150 projection steps) cut to 4 blocks of 50 steps
+STEADY_T_END = 0.5
+# Cavity_Steady's default "scipy" round (phase 26), held like phase 20's
+STEADY_ITERS = 20
+# the old-style cavity scripts' second round (phase 27)
+OLD_ITERS = 10
 
 
 def phase(name):
@@ -547,6 +580,9 @@ def main():
     os.environ.pop("TPINN_USE_PALLAS", None)
     t_all = time.perf_counter()
     record = {}
+    # data that later phases read again (phase 22's series, phase 25's
+    # steady fields); removed at the end or when the process exits
+    work = tempfile.TemporaryDirectory(prefix="chip_smoke_")
 
     with phase("1 device and build"):
         smi = subprocess.run(
@@ -1798,14 +1834,26 @@ def main():
         from tpinn_torch import utils
         from tpinn_torch.cases import cavity_unsteady
         from tpinn_torch.losses import PrecomputedMeanSquares
-        from tpinn_torch.oracles import cavity
+        from tpinn_torch.oracles import cavity, generate
 
         # the exact data: the cavity oracle on the card at the case's size
         # (n = 100, 100 output steps of 5 projection steps), its host
-        # synchronisations counted by the oracle and by torch's debug mode
+        # synchronisations counted by the oracle and by torch's debug mode;
+        # the regular-grid csv that the generator also writes (host numpy,
+        # not read by this case) is timed apart and left out of the
+        # oracle's seconds, which keep their meaning of PR 11
         cg = cavity.CGCounts()
-        with tempfile.TemporaryDirectory() as td, \
-                warnings.catch_warnings(record=True) as caught:
+        # the series stays in the work folder for phase 27
+        td = os.path.join(work.name, "unsteady")
+        write_csv, csv_s = generate._write_unsteady_regular_csv, []
+
+        def timed_csv(*args):
+            t = time.perf_counter()
+            write_csv(*args)
+            csv_s.append(time.perf_counter() - t)
+
+        generate._write_unsteady_regular_csv = timed_csv
+        with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
             torch.cuda.synchronize()
             torch.cuda.set_sync_debug_mode("warn")
@@ -1815,12 +1863,17 @@ def main():
                                                    counts=cg)
             finally:
                 torch.cuda.set_sync_debug_mode("default")
-            oracle_s = time.perf_counter() - t0
+                generate._write_unsteady_regular_csv = write_csv
+            oracle_s = time.perf_counter() - t0 - sum(csv_s)
         oracle_syncs = sum("synchroniz" in str(w.message) for w in caught)
         cg_its = cg.iterations()
         n_xy = 101 ** 2
+        if len(csv_s) != 1:
+            raise AssertionError(f"regular-grid csv written {len(csv_s)} "
+                                 "times")
         print(f"  oracle on the card: {oracle_s:.2f} s for {len(cg_its)} "
-              f"projection steps; CG iterations per step mean "
+              f"projection steps (the regular-grid csv apart: "
+              f"{csv_s[0]:.2f} s); CG iterations per step mean "
               f"{np.mean(cg_its):.1f}, max {max(cg_its)}, total "
               f"{sum(cg_its)}; host reads {cg.syncs} (sync debug mode "
               f"{oracle_syncs}), {cg.syncs / len(cg_its):.2f} per step")
@@ -1887,7 +1940,8 @@ def main():
                                             & set(cv_files))):
             raise AssertionError(f"Cavity_Unsteady artifacts {cv_files}")
         record["cavity_unsteady"] = {
-            "oracle_s": oracle_s, "oracle_steps": len(cg_its),
+            "oracle_s": oracle_s, "csv_write_s": csv_s[0],
+            "oracle_steps": len(cg_its),
             "cg_iterations": sum(cg_its), "cg_max": max(cg_its),
             "oracle_syncs": cg.syncs, "oracle_syncs_debug": oracle_syncs,
             "launches": cav_launches, "counts": cvc,
@@ -2017,6 +2071,263 @@ def main():
             "attainable_ms": attain, "plain_ms": plain_ms,
             "launches": probe_launches}
 
+    with phase("25 the steady oracle on the card: n_solver 128, U 500, "
+               f"t_end cut to {STEADY_T_END}"):
+        from tpinn_torch.oracles import generate
+        from tpinn_torch.oracles import io as oio
+
+        # the march of examples/Cavity_Steady (n_solver 128, t_end 40) cut
+        # to its first blocks of 50 projection steps; its full length from
+        # the same dt rule as the oracle's
+        h = 1.0 / 128
+        dt_s = 0.4 * min(h, 0.25 * h * h * 500.0)
+        full_steps = (int(40.0 / dt_s / 50) + 1) * 50
+        steady_data = os.path.join(work.name, "steady", "data")
+        cg = cavity.CGCounts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        folder = generate.generate_cavity_steady(
+            steady_data, U=500.0, n_solver=128, t_end=STEADY_T_END,
+            device="cuda", counts=cg)
+        steady_s = time.perf_counter() - t0
+        st_its = cg.iterations()
+        n_steps = len(st_its)
+        extrap_s = steady_s / n_steps * full_steps
+        st_files = sorted(os.listdir(folder))
+        u_s, v_s, p_s = oio.read_fields(oio.find_steady_path(folder))
+        print(f"  {n_steps} projection steps (of the full march's "
+              f"{full_steps}, dt {dt_s:.6e}) in {steady_s:.2f} s, "
+              f"{1e3 * steady_s / n_steps:.2f} ms per step; CG iterations "
+              f"per step mean {np.mean(st_its):.1f}, max {max(st_its)}, "
+              f"total {sum(st_its)}, {1e3 * steady_s / sum(st_its):.3f} ms "
+              f"per iteration; host reads {cg.syncs} "
+              f"({cg.syncs / n_steps:.2f} per step); extrapolated full "
+              f"march {extrap_s:.0f} s ({extrap_s / 60:.1f} min); files "
+              f"{st_files}")
+        if (n_steps != int(STEADY_T_END / dt_s / 50 + 1) * 50
+                or max(st_its) >= cavity.CG_MAXITER
+                or u_s.shape != (101 ** 2,)
+                or not all(np.isfinite(a).all() for a in (u_s, v_s, p_s))
+                or abs(np.max(u_s) - 500.0) > 1e-9
+                or not {generate.STEADY_CSV, generate.STEADY_RANDOM_CSV}
+                <= set(st_files)):
+            raise AssertionError("steady oracle on the card failed")
+        # card against CPU at n_solver 32 over one block of 50 steps
+        runs = {}
+        for device in ("cuda", "cpu"):
+            cg = cavity.CGCounts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            f = generate.generate_cavity_steady(
+                os.path.join(work.name, f"steady32_{device}"), U=500.0,
+                n_solver=32, t_end=0.5, device=device, counts=cg)
+            runs[device] = (f, cg.iterations(), time.perf_counter() - t0)
+        (fg, its_g, s_g), (fc, its_c, s_c) = runs["cuda"], runs["cpu"]
+        pairs = list(zip(oio.read_fields(oio.find_steady_path(fc)),
+                         oio.read_fields(oio.find_steady_path(fg))))
+        for name in (generate.STEADY_CSV, generate.STEADY_RANDOM_CSV):
+            cc = oio.read_regular_csv(os.path.join(fc, name))
+            cgp = oio.read_regular_csv(os.path.join(fg, name))
+            pairs += [(cc[k], cgp[k]) for k in cc]
+        d_st = max(float(np.max(np.abs(a - b)) / max(np.max(np.abs(a)),
+                                                      1e-300))
+                   for a, b in pairs)
+        print(f"  n_solver 32, 50 steps: card {s_g:.2f} s, CPU {s_c:.2f} s; "
+              f"CG iterations equal: {its_g == its_c} ({sum(its_g)} in "
+              f"{len(its_g)} solves); fields and csv values max |Δ| / max "
+              f"{d_st:.2e}")
+        if its_g != its_c or len(its_g) != 50 or d_st > ORACLE_BAR:
+            raise AssertionError("steady oracle card vs CPU failed")
+        record["steady_oracle"] = {
+            "t_end": STEADY_T_END, "steps": n_steps, "full_steps": full_steps,
+            "seconds": steady_s, "cg_iterations": sum(st_its),
+            "cg_mean": float(np.mean(st_its)), "cg_max": max(st_its),
+            "syncs": cg.syncs, "extrapolated_full_s": extrap_s,
+            "dev_32": d_st, "card_32_s": s_g, "cpu_32_s": s_c}
+
+    with phase("26 the slice at full width: Cavity_Steady, Adam 100 + "
+               f"BFGS {STEADY_ITERS}, float64"):
+        from tpinn_torch.cases import cavity_steady
+
+        st = {}
+        for device in ("cuda", "cpu"):
+            base = os.path.join(work.name, f"cavity_steady_{device}")
+            os.makedirs(base)
+            os.symlink(steady_data, os.path.join(base, "data"))
+            mb.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            drv = cavity_steady.main(epochs=STEADY_ITERS, base_dir=base,
+                                     device=device)
+            torch.cuda.synchronize()
+            st[device] = (drv, dict(mb.LAUNCHES), time.perf_counter() - t0,
+                          sorted(os.listdir(drv.folder)))
+        (cs_gpu, cs_launches, cs_wall, cs_files), (cs_cpu, _, cs_cpu_wall,
+                                                   _) = st["cuda"], st["cpu"]
+        hs, hsr = cs_gpu.pb.history, cs_cpu.pb.history
+        csc = cs_gpu.pb.bfgs_counts
+        i_adam = [i for i, r in enumerate(hs.rounds_idx) if r == 1]
+        d_cs_adam = rel_dev(hsr, hs, i_adam)
+        d_cs = rel_dev(hsr, hs, list(range(len(hs.iters))))
+        d_cs_final = abs(hs.loss_global[-1] / hsr.loss_global[-1] - 1.0)
+        cs_adam_ms = 1e3 * hs.wall_times[0] / 100
+        cs_bfgs_ms = 1e3 * hs.wall_times[1] / csc["iterations"]
+        fused = all(isinstance(l, PrecomputedMeanSquares)
+                    for l in cs_gpu.losses[:3])
+        opts = cs_gpu.opts
+        print(f"  options {vars(opts)}; losses "
+              f"{[l.name for l in cs_gpu.losses]}; widths "
+              f"{cs_gpu.model.layer_sizes}; fused PDE losses {fused}; "
+              f"launches {cs_launches}; {csc}; variant "
+              f"{cs_gpu.pb.last_opt_state['kind']}; loss_global "
+              f"{hs.loss_global[0]:.6e} -> {hs.loss_global[-1]:.6e}; against "
+              f"the CPU: Adam logs {d_cs_adam:.2e}, every log (BFGS "
+              f"iterations 0-{STEADY_ITERS}) {d_cs:.2e}, final global loss "
+              f"{d_cs_final:.2e} apart; {cs_adam_ms:.2f} ms per Adam epoch, "
+              f"{cs_bfgs_ms:.2f} ms per BFGS iteration; wall {cs_wall:.2f} s "
+              f"(CPU {cs_cpu_wall:.2f} s); final test losses "
+              f"{cs_gpu.final_test_losses()}; files {cs_files}")
+        if (hs.round_names != ["keras_Adam", "jax_BFGS"] or not fused
+                or cs_gpu.model.layer_sizes != (2, 32, 32, 32, 3)
+                or (opts.n_pde, opts.n_bc, opts.n_vel, opts.n_pres,
+                    opts.n_test, opts.noise_fit) != (1000, 1000, 100, 1,
+                                                     1000, 0.01)
+                or hs.iters != hsr.iters
+                or cs_launches["ns_residual_bwd"] != 100 + csc["evaluations"]
+                or cs_launches["ns_residual_fwd"] != len(hs.iters)
+                or cs_launches["taylor_bundle"]
+                or not np.isfinite(logs(hs)).all()
+                or not hs.loss_global[-1] < hs.loss_global[0]
+                or d_cs_adam > HISTORY_BAR or d_cs > HISTORY_BAR
+                or d_cs_final > FINAL_LOSS_BAR):
+            raise AssertionError("Cavity_Steady round failed")
+        if not ({"History_Loss.json", "Model.json", "Test_Options.txt",
+                 "checkpoint.pkl"} <= set(cs_files)
+                and {"Weights.npz", "Weights.h5"} & set(cs_files)):
+            raise AssertionError(f"Cavity_Steady artifacts {cs_files}")
+        # a reload of the saved run skips training and gives the same test
+        # losses at the same parameters
+        test_now = [float(l.raw_value().detach())
+                    for l in cs_gpu.losses_test]
+        loaded = cavity_steady.main(base_dir=os.path.dirname(cs_gpu.folder),
+                                    load_from=cs_gpu.folder, device="cuda")
+        test_loaded = [float(l.raw_value().detach())
+                       for l in loaded.losses_test]
+        print(f"  reload: test losses {test_loaded} (trained {test_now}); "
+              f"history kept {loaded.pb.history.loss_global == hs.loss_global}")
+        if (test_loaded != test_now
+                or loaded.pb.history.loss_global != hs.loss_global):
+            raise AssertionError("Cavity_Steady load_from failed")
+        record["cavity_steady"] = {
+            "launches": cs_launches, "counts": csc, "dev_adam": d_cs_adam,
+            "dev": d_cs, "final_loss_rel": d_cs_final,
+            "ms_per_adam_epoch": cs_adam_ms,
+            "ms_per_bfgs_iteration": cs_bfgs_ms, "wall_s": cs_wall,
+            "cpu_wall_s": cs_cpu_wall,
+            "test_losses": cs_gpu.final_test_losses(), "files": cs_files}
+
+    with phase("27 the old-style cavity scripts on the card, Adam 100 + "
+               f"scipy BFGS {OLD_ITERS}"):
+        from tpinn_torch.cases import cavity_steady_csv, cavity_unsteady_old
+
+        def link_files(src, folder):
+            os.makedirs(folder)
+            for name in os.listdir(src):
+                os.symlink(os.path.join(src, name),
+                           os.path.join(folder, name))
+
+        unsteady_series = os.path.join(work.name, "unsteady", "UnsteadyCase")
+        old = {"cavity_steady_csv": {}, "cavity_unsteady_old": {}}
+        for device in ("cuda", "cpu"):
+            out = os.path.join(work.name, f"csv_{device}")
+            os.makedirs(out)
+            os.symlink(steady_data, os.path.join(out, "data"))
+            mb.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pb, model = cavity_steady_csv.main(
+                epochs=OLD_ITERS, press_mode="Mean", out_dir=out,
+                save_mode=True, model_name_save="cavity_csv", device=device)
+            torch.cuda.synchronize()
+            old["cavity_steady_csv"][device] = (
+                pb, time.perf_counter() - t0, dict(mb.LAUNCHES))
+            if device == "cuda":
+                csv_run = (pb, model, out)
+            # the old unsteady script on phase 22's series, each file linked
+            # (on the card without the regular-grid csv, which it derives)
+            out_u = os.path.join(work.name, f"old_{device}")
+            link_files(unsteady_series if device == "cuda" else os.path.join(
+                work.name, "old_cuda", "data", "UnsteadyCase"),
+                os.path.join(out_u, "data", "UnsteadyCase"))
+            if device == "cuda":
+                os.remove(os.path.join(out_u, "data", "UnsteadyCase",
+                                       generate.UNSTEADY_CSV))
+                t0 = time.perf_counter()
+                generate.generate_cavity_unsteady(os.path.join(out_u, "data"))
+                derive_s = time.perf_counter() - t0
+            mb.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            upb, _ = cavity_unsteady_old.main(
+                epochs=OLD_ITERS, out_dir=out_u, device=device,
+                save_plots=device == "cuda")
+            torch.cuda.synchronize()
+            old["cavity_unsteady_old"][device] = (
+                upb, time.perf_counter() - t0, dict(mb.LAUNCHES))
+        res = {}
+        for name, runs in old.items():
+            (pb_g, wall_g, launches_g), (pb_c, wall_c, _) = (runs["cuda"],
+                                                             runs["cpu"])
+            hg, hc = pb_g.history, pb_c.history
+            i_adam = [i for i, r in enumerate(hg.rounds_idx) if r == 1]
+            n_it = hg.iters[-1] - hg.iters[len(i_adam)]
+            res[name] = r = {
+                "dev_adam": rel_dev(hc, hg, i_adam),
+                "dev": rel_dev(hc, hg, list(range(len(hg.iters)))),
+                "final_loss_rel": abs(hg.loss_global[-1]
+                                      / hc.loss_global[-1] - 1.0),
+                "ms_per_adam_epoch": 1e3 * hg.wall_times[0] / 100,
+                "bfgs_iterations": n_it,
+                "ms_per_bfgs_iteration": 1e3 * hg.wall_times[1] / n_it,
+                "wall_s": wall_g, "cpu_wall_s": wall_c,
+                "launches": launches_g,
+                "losses": [l.name for l in pb_g.losses],
+                "round_names": hg.round_names,
+                "loss_first": hg.loss_global[0],
+                "loss_last": hg.loss_global[-1]}
+            print(f"  {name}: losses {r['losses']}; rounds "
+                  f"{r['round_names']}; loss_global {r['loss_first']:.6e} -> "
+                  f"{r['loss_last']:.6e}; against the CPU: Adam logs "
+                  f"{r['dev_adam']:.2e}, every log {r['dev']:.2e}, final "
+                  f"global loss {r['final_loss_rel']:.2e} apart; "
+                  f"{r['ms_per_adam_epoch']:.2f} ms per Adam epoch, "
+                  f"{r['ms_per_bfgs_iteration']:.2f} ms per BFGS iteration "
+                  f"({n_it}); wall {wall_g:.2f} s (CPU {wall_c:.2f} s); "
+                  f"kernel launches {launches_g}")
+            if (hg.round_names != ["keras_Adam", "scipy_BFGS"]
+                    or hg.iters != hc.iters or not 0 < n_it <= OLD_ITERS
+                    or any(launches_g.values())
+                    or not np.isfinite(logs(hg)).all()
+                    or not r["loss_last"] < r["loss_first"]
+                    or r["dev_adam"] > HISTORY_BAR or r["dev"] > HISTORY_BAR
+                    or r["final_loss_rel"] > FINAL_LOSS_BAR):
+                raise AssertionError(f"{name} on the card failed")
+        # the save / load round trip on the card
+        pb, model, out = csv_run
+        _, loaded = cavity_steady_csv.main(
+            out_dir=out, load_mode=True, model_name_load="cavity_csv",
+            device="cuda", save_plots=False)
+        x = torch.rand(1000, 2, dtype=f64, device=dev)
+        with torch.no_grad():
+            same = torch.equal(loaded(x), model(x))
+        saved = sorted(os.listdir(os.path.join(out, "Saved_Model")))
+        print(f"  cavity_steady_csv save / load: {saved}, outputs "
+              f"bit-identical {same}; the unsteady csv derived from the "
+              f"series in {derive_s:.2f} s")
+        if not same or "cavity_csv.json" not in saved:
+            raise AssertionError("cavity_steady_csv save/load failed")
+        record["old_scripts"] = {**res, "derive_csv_s": derive_s}
+
     # launches on each path that runs the kernel, each read around its run;
     # "launches" is the count on the main path of the kernel's slice
     paths = {"4 Poiseuille Adam": launches,
@@ -2028,7 +2339,8 @@ def main():
              "20 colliding flow Adam + BFGS": cf_launches,
              "20 Poisson Adam + L-BFGS": p_lbfgs_launches,
              "21 Poiseuille cosine Adam": cos_launches,
-             "22 Cavity_Unsteady Adam + BFGS (d_in 3)": cav_launches}
+             "22 Cavity_Unsteady Adam + BFGS (d_in 3)": cav_launches,
+             "26 Cavity_Steady Adam + BFGS": cs_launches}
 
     def kernel_row(name, key, route_src, replaces, main, row, n):
         d_ms, per_call, _ = dev_t[(name, n)]
@@ -2089,6 +2401,7 @@ def main():
                            else 1e3 * r["library_seconds"] / r["outer"]),
             "rate_per_sec": r["rate_per_sec"],
             "launches_by_path": {"24 roofline probe": probe_launches[body]}})
+    work.cleanup()
     total = time.perf_counter() - t_all
     print(f"total {total:.1f} s")
     if args.out:

@@ -159,10 +159,15 @@ def test_main_runs_resumes_and_takes_pde_weights(tmp_path, series):
 
 def test_main_reads_the_data_folder(tmp_path):
     """Without exact_data, main reads BASE/data/UnsteadyCase (the oracle
-    runs only when the series is missing) and the options file."""
+    runs only when the series is missing; the regular-grid csv is derived
+    from the series found there) and the options file."""
     base = tmp_path / "case"
-    os.makedirs(base / "data")
-    os.symlink(_DATA, base / "data" / "UnsteadyCase")
+    # each file linked, so that the regular-grid csv the generator derives
+    # from the series is written here
+    os.makedirs(base / "data" / "UnsteadyCase")
+    for name in os.listdir(_DATA):
+        os.symlink(os.path.join(_DATA, name),
+                   base / "data" / "UnsteadyCase" / name)
     _options_file(base, epochs=0, n_pde=32, n_bc=8, n_ic=8, n_vel=4,
                   n_test=16)
     drv = cu.main(base_dir=str(base), device="cpu", adam_epochs=1,
@@ -170,3 +175,5 @@ def test_main_reads_the_data_folder(tmp_path):
     assert drv.opts.n_pde == 32 and drv.opts.n_ic == 8
     assert drv.dom_grid.shape == (1_020_100, 3)
     assert os.path.basename(drv.folder) == "Last_Training"
+    assert os.path.isfile(base / "data" / "UnsteadyCase"
+                          / "navier-stokes_SI_cavity_unsteady_r.csv")

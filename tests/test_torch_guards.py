@@ -13,7 +13,7 @@ import torch
 torch.set_num_threads(1)
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_FORBIDDEN_MODULES = ("jax", "optax", "h5py", "matplotlib", "tpinn")
+_FORBIDDEN_MODULES = ("jax", "optax", "h5py", "matplotlib", "tpinn", "pandas")
 
 
 def _port_files():
@@ -48,7 +48,8 @@ _LAZY_IMPORTS = {
     os.path.join("tpinn_torch", "models.py"): {
         "save_weights": "h5py", "load_weights": "h5py"},
     os.path.join("tpinn_torch", "oracles", "io.py"): {
-        "write_fields": "h5py", "read_fields": "h5py"},
+        "write_fields": "h5py", "read_fields": "h5py",
+        "read_mesh_geometry": "h5py"},
 }
 
 
@@ -64,26 +65,26 @@ def _function_body(text, name):
 
 @pytest.mark.parametrize("path", [os.path.relpath(p, _REPO) for p in _port_files()])
 def test_port_file_has_no_forbidden_import(path):
-    """No port file imports JAX, optax, h5py, matplotlib or tpinn; the
-    exceptions are matplotlib inside ``utils._plot_history_dict`` and
+    """No port file imports JAX, optax, h5py, matplotlib, pandas or tpinn;
+    the exceptions are matplotlib inside ``utils._plot_history_dict`` and
     ``viz._plt`` and h5py inside ``Model.save_weights`` /
     ``Model.load_weights`` and the oracle's ``io.write_fields`` /
-    ``io.read_fields``, each imported when a figure or an HDF5 file is
-    written or read (never on the training path)."""
+    ``io.read_fields`` / ``io.read_mesh_geometry``, each imported when a
+    figure or an HDF5 file is written or read (never on the training
+    path)."""
     with open(os.path.join(_REPO, path)) as f:
         text = f.read()
     for name, module in _LAZY_IMPORTS.get(path, {}).items():
         body = _function_body(text, name)
         assert re.search(rf"^\s+import\s+{module}\b", body, re.M), (name,
                                                                      module)
-        others = [m for m in ("jax", "optax", "h5py", "matplotlib", "tpinn")
-                  if m != module]
+        others = [m for m in _FORBIDDEN_MODULES if m != module]
         assert not re.search(rf"^\s*(import|from)\s+({'|'.join(others)})\b",
                              body, re.M), name
         text = text.replace(body, "")
     assert not re.search(r"^\s*(import|from)\s+jax\b", text, re.M)
-    assert not re.search(r"^\s*(import|from)\s+(optax|h5py|matplotlib)\b",
-                         text, re.M)
+    assert not re.search(
+        r"^\s*(import|from)\s+(optax|h5py|matplotlib|pandas)\b", text, re.M)
     assert not re.search(r"^\s*from\s+tpinn(\.|\s)", text, re.M)
     assert not re.search(r"^\s*import\s+tpinn(\.|\s|$)", text, re.M)
     assert "cpp_extension" not in text
@@ -194,10 +195,20 @@ def test_namespace_has_every_name_of_tpinn():
 
 
 def test_cases_refuse_to_run_silently_on_the_cpu(tmp_path, monkeypatch):
-    """Without a card the Poisson cases raise unless given device='cpu'."""
-    from tpinn_torch.cases import poisson, poisson_misto
+    """Without a card the Poisson cases and the three steady / old-style
+    cavity cases raise unless given device='cpu', before any data is made
+    or read."""
+    from tpinn_torch.cases import (cavity_steady, cavity_steady_csv,
+                                   cavity_unsteady_old, poisson,
+                                   poisson_misto)
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     for case in (poisson, poisson_misto):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             case.main(1, out_dir=str(tmp_path))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        cavity_steady.main(1, base_dir=str(tmp_path))
+    for case in (cavity_steady_csv, cavity_unsteady_old):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            case.main(1, out_dir=str(tmp_path))
+    assert os.listdir(tmp_path) == []

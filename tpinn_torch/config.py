@@ -106,3 +106,28 @@ class SimulationOptions:
             n_pres=int(fields[8]),
             n_test=int(fields[9]),
         )
+
+    def to_file(self, path: str | os.PathLike) -> None:
+        """Write the options in the legacy format (``from_file`` reads them
+        back), as the JAX package writes them."""
+        rows = [
+            ("TRAINING EPOCHS", self.epochs),
+            ("NOISE ON FITTING", self.noise_fit),
+            ("NOISE ON BOUNDARY", self.noise_bnd),
+            ("POINTS PDE", self.n_pde),
+            ("POINTS BOUNDARY CONDITIONS", self.n_bc),
+            ("POINTS INITIAL CONDITIONS", self.n_ic),
+            ("POINTS VELOCITY FITTING", self.n_vel),
+            ("POINTS PRESSURE FITTING", self.n_pres),
+            ("POINT TEST EVALUATION", self.n_test),
+        ]
+        lines = ["### Put this file into the folder of the given problem ###"]
+        for label, value in rows:
+            lines += [label, str(value)]
+        lines.append("### End of the File ###")
+        with open(path, "w") as f:
+            f.write("\n".join(lines))
+
+
+def read_simulation_options(path) -> SimulationOptions:
+    return SimulationOptions.from_file(path)

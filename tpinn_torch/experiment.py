@@ -7,28 +7,30 @@ from __future__ import annotations
 import os
 from typing import Dict, Optional
 
-CASE_PREFIX = "Test_Case_#"
+DEFAULT_PREFIX = "Test_Case_#"
 SCRATCH_FOLDER = "Last_Training"
 RECAP_FILE = "Test_Options.txt"
 
 
-def next_case_folder(base_dir: str = ".") -> str:
-    """Name of the next auto-numbered experiment folder (not yet created)."""
-    existing = [x for x in os.listdir(base_dir) if x.startswith(CASE_PREFIX)]
+def next_case_folder(base_dir: str = ".", prefix: str = DEFAULT_PREFIX) -> str:
+    """Name of the next auto-numbered experiment folder (not yet created):
+    ``prefix`` and three digits."""
+    existing = [x for x in os.listdir(base_dir) if x.startswith(prefix)]
     if not existing:
         idx = 1
     else:
-        idx = max(int(x[len(CASE_PREFIX):]) for x in existing) + 1
-    return f"{CASE_PREFIX}{idx:03d}"
+        idx = max(int(x[len(prefix):]) for x in existing) + 1
+    return f"{prefix}{idx:03d}"
 
 
-def prepare_folder(base_dir: str = ".", save_results: bool = True) -> str:
+def prepare_folder(base_dir: str = ".", save_results: bool = True,
+                   prefix: str = DEFAULT_PREFIX) -> str:
     """Create and return the run folder under ``base_dir`` (created if
-    missing): a fresh ``Test_Case_#NNN`` when ``save_results``, else the
-    shared ``Last_Training`` scratch folder."""
+    missing): a fresh ``prefix``NNN (``Test_Case_#NNN``) when
+    ``save_results``, else the shared ``Last_Training`` scratch folder."""
     os.makedirs(base_dir, exist_ok=True)
     if save_results:
-        folder = os.path.join(base_dir, next_case_folder(base_dir))
+        folder = os.path.join(base_dir, next_case_folder(base_dir, prefix))
         os.makedirs(folder)
     else:
         folder = os.path.join(base_dir, SCRATCH_FOLDER)

@@ -35,6 +35,10 @@ class Loss:
     def raw_value(self) -> torch.Tensor:
         return self.fn() / self.normalization
 
+    def weighted_value(self) -> torch.Tensor:
+        """The loss's term in the global objective: weight · raw value."""
+        return self.weight * self.raw_value()
+
     def metadata(self) -> dict:
         return {
             "weight": self.weight,
