@@ -45,7 +45,8 @@ exits non-zero:
    evaluation and of its two host/device copies;
 9. kernel 5 (taylor_bundle, the per-point value, Jacobian and Hessian
    diagonal) against its plain version in float64: 2-32-32-32-3 at n =
-   1000, 100 and 4099 (not a tile multiple), d_in = 3 (seven streams),
+   1000, 100, 33 and 3000 (the coronary LM route's outflow and PDE
+   batches) and 4099 (not a tile multiple), d_in = 3 (seven streams),
    2-20-20-20-1 (a scalar head), 3-20-20-20-3 with dim 1, 2 and 3 at a
    ragged n, widths 64 (3-64-64-3, 2-64-64-64-1), one-layer nets, and an
    8-layer width-64 net whose weights are streamed layer by layer; max
@@ -55,9 +56,9 @@ exits non-zero:
    against float64 (at most 1e-5 of max|ref|); back-to-back calls at two
    batch sizes, each bit-equal to the first at its size; the DMMA count of
    each float64 instance and no HMMA (TF32) in any, from `cuobjdump -sass`;
-10. times of kernel 5 and its plain version at 100, 1,000, 262,144 and
-   1,048,576 points, float32 and float64, as in phase 5, with the plan's
-   tile and grid;
+10. times of kernel 5 and its plain version at 33, 100, 1,000, 3,000,
+   262,144 and 1,048,576 points, float32 and float64, as in phase 5, with
+   the plan's tile and grid;
 11. the slice: the Poiseuille Levenberg–Marquardt round (10 iterations
    after a 0-epoch Adam round, float64, the reference options) through
    tpinn_torch.cases.poiseuille_flow.main with TPINN_USE_PALLAS=1, the
@@ -78,7 +79,8 @@ exits non-zero:
    launch's last block resets the ticket;
 14. the device time per launch of kernels 1-5 under torch.profiler beside
    the event-timed call time, the device kernels one call launches (1 for
-   each), at the main shapes and at 1,048,576 points;
+   each), at the main shapes and at 1,048,576 points (kernel 5 also at 33
+   and 3,000);
 15. the slice: the Poiseuille main path, Adam 100 epochs then the dense
    BFGS round ("jax-bfgs", 40 iterations), float64, through
    tpinn_torch.cases.poiseuille_flow.main, with the launch counts read
@@ -170,11 +172,41 @@ exits non-zero:
    outputs), and tpinn_torch.cases.cavity_unsteady_old at its defaults on
    phase 22's series (the regular-grid csv derived from it, timed), each
    Adam 100 then the host scipy BFGS cut to 10 iterations, card against
-   CPU at phase 26's bars.
+   CPU at phase 26's bars;
+28. the coronary oracle on the card's host: the mesh and boundary points
+   the package carries (their SHA-256 held to the port's constants, 10,833
+   nodes and 20,864 triangles), the P1-FEM steady solve through
+   tpinn_torch.oracles.coronary.generate_coronary into a temporary dir
+   (npz where h5py is missing), its seconds and Picard solves, the fields'
+   max |.| and L2 norms within 1e-9 of the committed fields' (constants in
+   the port);
+29. the coronary slice at full width: examples/Coronary_Flow's reference
+   options (3,000 PDE, 50 velocity-fitting and 2,000 test points, 1 % fit
+   noise; 2-32-32-32-3, float64; 13 training losses on the mesh's nodes
+   and labeled boundary points) on phase 28's data through
+   tpinn_torch.cases.coronary_flow_steady.main: Adam 100 then the default
+   "scipy" round (the dense BFGS, 20 iterations) on the closed-form
+   bundles (kernels 1-5 launch 0 times, as in the example), held against
+   the same run on the CPU (the Adam logs and every log to BFGS iteration
+   20 at 1e-8, the final global loss at 5 %), the ms per Adam epoch and
+   per BFGS iteration, the run folder (weights, history, ``sol_pinn``,
+   recap);
+30. the LM routes: phase 29's run resumed (``resume_from``) with the LM
+   round for 5 iterations under TPINN_USE_PALLAS=1 on the card, with the
+   launch counts read around it (kernel 5 three times, for the PDE batch
+   of 3,000 and the two outflows of 33 points, per evaluation of the
+   training losses; kernels 1-4 not at all), held against the same resume
+   on the CPU and on the card with the opt-in off (kernel 5 then does not
+   launch) at 1e-8 over every log, each with its LM iteration split
+   (residuals, Gram, download, eigh, accept); then the Poisson case's LM
+   route (Adam 100 + LM 10, the tape PDE loss, no kernel) card against CPU
+   at 1e-8.
 
 The line before the last is the kernels' JSON record (each kernel's
 launches on every path that runs it, ``launches`` being its slice's main
-path, and ``bound_probe_ms`` its attainable bound from phase 24; the probe's
+path (kernel 5: phase 30's coronary LM round, with its times at that
+route's shapes under ``by_n``), and ``bound_probe_ms`` its attainable bound
+from phase 24; the probe's
 bodies with the launches of phase 24's rate runs), the last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -204,7 +236,9 @@ REPS = 10
 # its final global loss (PERF.md section 2)
 SCIPY_HEAD_ITERS = 20
 FINAL_LOSS_BAR = 0.05
-BUNDLE_SIZES = (100, 1000, 262_144, 1_048_576)
+# kernel 5 at the coronary LM route's shapes too: n = 33 (each outflow) and
+# 3,000 (the PDE batch)
+BUNDLE_SIZES = (33, 100, 1000, 3000, 262_144, 1_048_576)
 LM_ITERS = 10
 HISTORY_BAR = 1e-8
 # the dense BFGS round (phase 15): 40 iterations on the card and the CPU, the
@@ -240,6 +274,11 @@ STEADY_T_END = 0.5
 STEADY_ITERS = 20
 # the old-style cavity scripts' second round (phase 27)
 OLD_ITERS = 10
+# the coronary default route's dense BFGS round (phase 29), held like
+# phase 20's; the LM resume of its run and the Poisson LM round (phase 30)
+CORONARY_ITERS = 20
+CORONARY_LM_ITERS = 5
+POISSON_LM_ITERS = 10
 
 
 def phase(name):
@@ -975,6 +1014,8 @@ def main():
         main_w = (2,) + WIDTHS + (3,)
         b_cases = [("2-32-32-32-3 n=1000", main_w, 1000, None),
                    ("2-32-32-32-3 n=100", main_w, 100, None),
+                   ("2-32-32-32-3 n=33 (an outflow)", main_w, 33, None),
+                   ("2-32-32-32-3 n=3000 (coronary PDE)", main_w, 3000, None),
                    ("2-32-32-32-3 n=4099", main_w, 4099, None),
                    ("3-32-32-32-3 n=1000", (3,) + WIDTHS + (3,), 1000, None),
                    ("2-20-20-20-1 n=1000", POISSON_WIDTHS, 1000, None),
@@ -1330,7 +1371,7 @@ def main():
                         params, x, f))):
                 dev_t[(key, n)] = device_profile(fn, calls)
             del params, x, f
-        for n in (1000, 1_048_576):
+        for n in (33, 1000, 3000, 1_048_576):
             params, x = bundle_problem((2,) + WIDTHS + (3,), n, 7, f64, dev)
             dev_t[("taylor_bundle", n)] = device_profile(
                 lambda: mb.mlp_taylor_bundle(params, x),
@@ -1345,7 +1386,9 @@ def main():
                    ("ns_residual_fwd", 1_048_576): times[("ns", "float64", 1_048_576)]["fwd"],
                    ("poisson_residual_bwd", 1_048_576): times[("poisson", "float64", 1_048_576)]["bwd"],
                    ("poisson_residual_fwd", 1_048_576): times[("poisson", "float64", 1_048_576)]["fwd"],
+                   ("taylor_bundle", 33): times[("bundle", "float64", 33)]["kernel"],
                    ("taylor_bundle", 1000): times[("bundle", "float64", 1000)]["kernel"],
+                   ("taylor_bundle", 3000): times[("bundle", "float64", 3000)]["kernel"],
                    ("taylor_bundle", 1_048_576): times[("bundle", "float64", 1_048_576)]["kernel"]}
         for (key, n), (d_ms, per_call, names) in dev_t.items():
             print(f"  {key} n={n}: device {1e3 * d_ms:.2f} us per launch, "
@@ -2328,6 +2371,248 @@ def main():
             raise AssertionError("cavity_steady_csv save/load failed")
         record["old_scripts"] = {**res, "derive_csv_s": derive_s}
 
+    with phase("28 the coronary oracle on the card host: the packaged mesh, "
+               "the P1-FEM steady solve"):
+        import shutil
+
+        from tpinn_torch.oracles import coronary as coro
+        from tpinn_torch.oracles import io as oio
+        from tpinn_torch.oracles.mesh import read_gmsh
+
+        digests = {"coroParam.msh": coro.sha256(coro.MESH_PATH),
+                   "bpoints.npy": coro.sha256(coro.BPOINTS_PATH)}
+        if digests != {"coroParam.msh": coro.MESH_SHA256,
+                       "bpoints.npy": coro.BPOINTS_SHA256}:
+            raise AssertionError(f"packaged coronary files differ: {digests}")
+        mesh = read_gmsh(coro.MESH_PATH)
+        bp_sizes = {k: len(v) for k, v in
+                    oio.load_bpoints(coro.BPOINTS_PATH).items()}
+        coro_data = os.path.join(work.name, "coronary_data")
+        picard = {}
+        t0 = time.perf_counter()
+        folder = coro.generate_coronary(coro_data, coro.MESH_PATH,
+                                        coro.BPOINTS_PATH, counts=picard)
+        oracle_s = time.perf_counter() - t0
+        fields_path = coro.steady_fields_path(folder)
+        fields = dict(zip("uvp", oio.read_fields(fields_path)))
+        norms = {k: (float(np.max(np.abs(a))), float(np.linalg.norm(a)))
+                 for k, a in fields.items()}
+        norm_dev = max(abs(got / ref - 1.0)
+                       for k in "uvp" for got, ref in zip(
+                           norms[k], coro.FIELD_NORMS[k]))
+        print(f"  mesh {mesh.nodes.shape[0]} nodes, "
+              f"{mesh.triangles.shape[0]} triangles, SHA-256 as committed; "
+              f"boundary points {bp_sizes}; oracle {oracle_s:.2f} s, "
+              f"{picard['picard']} Picard solves, wrote "
+              f"{sorted(os.listdir(folder))}; field max|.| / L2 {norms}, "
+              f"largest relative deviation from the committed fields' "
+              f"{norm_dev:.2e}")
+        if (mesh.nodes.shape[0], mesh.triangles.shape[0]) != (10833, 20864) \
+                or norm_dev > ORACLE_BAR:
+            raise AssertionError("coronary oracle off the committed fields")
+        record["coronary_oracle"] = {"seconds": oracle_s,
+                                     "picard": picard["picard"],
+                                     "norms": norms, "norm_dev": norm_dev,
+                                     "layout": os.path.basename(fields_path)}
+
+    with phase("29 the coronary slice at full width: Adam 100 + dense BFGS "
+               f"{CORONARY_ITERS}, float64, card and CPU"):
+        from tpinn_torch.cases import coronary_flow_steady as cfs
+
+        def coronary_base(name):
+            base = os.path.join(work.name, name)
+            os.makedirs(base)
+            os.symlink(coro_data, os.path.join(base, "data"))
+            return base
+
+        co = {}
+        for device in ("cuda", "cpu"):
+            base = coronary_base(f"coronary_{device}")
+            mb.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pb, model = cfs.main(CORONARY_ITERS, base_dir=base, device=device)
+            torch.cuda.synchronize()
+            co[device] = (pb, model, dict(mb.LAUNCHES),
+                          time.perf_counter() - t0,
+                          os.path.join(base, "Test_Case_#001"))
+        (co_pb, co_model, co_launches, co_wall, co_folder), \
+            (co_cpu, _, _, co_cpu_wall, _) = co["cuda"], co["cpu"]
+        hc, hcr = co_pb.history, co_cpu.history
+        i_adam = [i for i, r in enumerate(hc.rounds_idx) if r == 1]
+        d_co_adam = rel_dev(hcr, hc, i_adam)
+        d_co = rel_dev(hcr, hc, list(range(len(hc.iters))))
+        d_co_final = abs(hc.loss_global[-1] / hcr.loss_global[-1] - 1.0)
+        coc = co_pb.bfgs_counts
+        co_adam_ms = 1e3 * hc.wall_times[0] / 100
+        co_bfgs_ms = 1e3 * hc.wall_times[1] / coc["iterations"]
+        co_files = sorted(os.listdir(co_folder))
+        n_rows = sum(int(l.point_residual[1][0].shape[0])
+                     for l in co_pb.losses)
+        print(f"  losses {[l.name for l in co_pb.losses]} ({n_rows} residual "
+              f"rows); widths {co_model.layer_sizes}; launches "
+              f"{co_launches}; {coc}; loss_global {hc.loss_global[0]:.6e} -> "
+              f"{hc.loss_global[-1]:.6e}; against the CPU: Adam logs "
+              f"{d_co_adam:.2e}, every log (BFGS iterations 0-"
+              f"{CORONARY_ITERS}) {d_co:.2e}, final global loss "
+              f"{d_co_final:.2e} apart; {co_adam_ms:.2f} ms per Adam epoch, "
+              f"{co_bfgs_ms:.2f} ms per BFGS iteration; wall {co_wall:.2f} s "
+              f"(CPU {co_cpu_wall:.2f} s, {1e3 * hcr.wall_times[0] / 100:.2f}"
+              f" ms per Adam epoch); files {co_files}")
+        if (hc.round_names != ["keras_Adam", "jax_BFGS"]
+                or co_model.layer_sizes != (2, 32, 32, 32, 3)
+                or len(co_pb.losses) != 13
+                or len(co_pb.losses[0].point_residual[1][0]) != 3000
+                or len(co_pb.losses[-1].point_residual[1][0]) != 50
+                or len(co_pb.losses_test[0].fn()) != 2000
+                or hc.iters != hcr.iters or any(co_launches.values())
+                or not np.isfinite(logs(hc)).all()
+                or not hc.loss_global[-1] < hc.loss_global[0]
+                or d_co_adam > HISTORY_BAR or d_co > HISTORY_BAR
+                or d_co_final > FINAL_LOSS_BAR):
+            raise AssertionError("coronary default route failed")
+        if not ({"History_Loss.json", "Model.json", "Test_Options.txt",
+                 "checkpoint.pkl"} <= set(co_files)
+                and {"Weights.npz", "Weights.h5"} & set(co_files)
+                and {"sol_pinn.npz", "sol_pinn.h5"} & set(co_files)):
+            raise AssertionError(f"coronary artifacts {co_files}")
+        record["coronary"] = {
+            "launches": co_launches, "counts": coc, "dev_adam": d_co_adam,
+            "dev": d_co, "final_loss_rel": d_co_final,
+            "ms_per_adam_epoch": co_adam_ms,
+            "ms_per_bfgs_iteration": co_bfgs_ms, "wall_s": co_wall,
+            "cpu_wall_s": co_cpu_wall, "residual_rows": n_rows,
+            "files": co_files}
+
+    with phase(f"30 the LM routes: coronary --resume, LM {CORONARY_LM_ITERS} "
+               "(kernel 5 under TPINN_USE_PALLAS=1), and Poisson LM"):
+        from tpinn_torch.cases import poisson
+        from tpinn_torch.problem import OptimizationProblem
+
+        # every evaluation of the training losses at a parameter state:
+        # the stacked residuals and the logged evaluations
+        evaluations = []
+        real_methods = {name: getattr(OptimizationProblem, name)
+                        for name in ("residuals_at", "eval_all")}
+
+        def counted(real):
+            def method(self, *args):
+                evaluations.append(1)
+                return real(self, *args)
+            return method
+
+        def coronary_lm(name, device, opt_in):
+            base = coronary_base(f"coronary_lm_{name}")
+            folder = os.path.join(base, "Test_Case_#001")
+            shutil.copytree(co_folder, folder)
+            if opt_in:
+                os.environ["TPINN_USE_PALLAS"] = "1"
+            for attr, real in real_methods.items():
+                setattr(OptimizationProblem, attr, counted(real))
+            try:
+                evaluations.clear()
+                mb.reset_launch_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                pb, _ = cfs.main(CORONARY_LM_ITERS, base_dir=base,
+                                 second_round="lm", resume_from=folder,
+                                 device=device)
+                torch.cuda.synchronize()
+                return (pb, time.perf_counter() - t0, dict(mb.LAUNCHES),
+                        len(evaluations))
+            finally:
+                os.environ.pop("TPINN_USE_PALLAS", None)
+                for attr, real in real_methods.items():
+                    setattr(OptimizationProblem, attr, real)
+
+        lm_co = {"opt-in": coronary_lm("opt_in", "cuda", True),
+                 "cpu": coronary_lm("cpu", "cpu", True),
+                 "opt-in off": coronary_lm("off", "cuda", False)}
+        co_lm_pb, co_lm_wall, co_lm_launches, co_lm_evals = lm_co["opt-in"]
+        hl = co_lm_pb.history
+        others = {k: v for k, v in co_lm_launches.items()
+                  if k != "taylor_bundle"}
+        print(f"  launches on the main path: {co_lm_launches} over "
+              f"{co_lm_evals} evaluations of the training losses; "
+              f"{len(co_lm_pb.lm_times)} LM iterations, wall "
+              f"{co_lm_wall:.2f} s; rounds {hl.round_names}")
+        if (co_lm_launches["taylor_bundle"] != 3 * co_lm_evals
+                or not co_lm_evals or any(others.values())):
+            raise AssertionError("kernel 5 not launched three times (PDE, "
+                                 "OUT1, OUT2) per evaluation, or another "
+                                 f"kernel ran: {co_lm_launches}, "
+                                 f"{co_lm_evals} evaluations")
+        if lm_co["opt-in off"][2]["taylor_bundle"]:
+            raise AssertionError("kernel 5 launched with the opt-in off")
+        if (hl.round_names != ["keras_Adam", "jax_BFGS", "jax_LM"]
+                or not np.isfinite(logs(hl)).all()
+                or not hl.loss_global[-1] < hc.loss_global[-1]):
+            raise AssertionError("coronary LM round failed")
+        co_lm_devs = {}
+        for name in ("cpu", "opt-in off"):
+            other = lm_co[name][0].history
+            if other.iters != hl.iters:
+                raise AssertionError(f"{name}: logs at other iterations")
+            co_lm_devs[name] = rel_dev(other, hl, list(range(len(hl.iters))))
+        co_split = {}
+        for name, (pb_, wall_, _, _) in lm_co.items():
+            later = pb_.lm_times[1:] or pb_.lm_times
+            co_split[name] = {k: float(np.median([t.get(k, 0.0)
+                                                  for t in later]))
+                              for k in ("residuals", "gram", "download",
+                                        "eigh", "accept", "log")}
+            co_split[name]["first_s"] = sum(pb_.lm_times[0].values())
+            co_split[name]["wall_s"] = wall_
+            med = co_split[name]
+            print(f"  LM iteration ({name}), median of iterations 2-"
+                  f"{len(pb_.lm_times)}, ms: " + ", ".join(
+                      f"{k} {1e3 * med[k]:.2f}" for k in
+                      ("residuals", "gram", "download", "eigh", "accept",
+                       "log")) + f"; first iteration "
+                  f"{1e3 * med['first_s']:.1f}; wall {wall_:.2f} s")
+        print(f"  loss_global {hl.loss_global[len(hc.iters) - 1]:.6e} -> "
+              f"{hl.loss_global[-1]:.6e}; max rel deviation of every log "
+              f"against the CPU {co_lm_devs['cpu']:.2e}, against the card "
+              f"with the opt-in off {co_lm_devs['opt-in off']:.2e}")
+        if max(co_lm_devs.values()) > HISTORY_BAR:
+            raise AssertionError(f"coronary LM histories disagree: "
+                                 f"{co_lm_devs}")
+        # the Poisson case's LM route: the tape PDE loss, no kernel
+        plm = {}
+        for device in ("cuda", "cpu"):
+            with tempfile.TemporaryDirectory() as td:
+                mb.reset_launch_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                pb, _ = poisson.main(POISSON_LM_ITERS, out_dir=td,
+                                     second_round="lm", device=device)
+                torch.cuda.synchronize()
+                plm[device] = (pb, time.perf_counter() - t0,
+                               dict(mb.LAUNCHES))
+        hp, hpr = plm["cuda"][0].history, plm["cpu"][0].history
+        d_plm = rel_dev(hpr, hp, list(range(len(hp.iters))))
+        p_lm_ms = 1e3 * hp.wall_times[1] / len(plm["cuda"][0].lm_times)
+        print(f"  Poisson Adam 100 + LM {POISSON_LM_ITERS}: rounds "
+              f"{hp.round_names}, loss_global {hp.loss_global[0]:.6e} -> "
+              f"{hp.loss_global[-1]:.6e}; every log against the CPU "
+              f"{d_plm:.2e}; {1e3 * hp.wall_times[0] / 100:.2f} ms per Adam "
+              f"epoch, {p_lm_ms:.2f} ms per LM iteration; wall "
+              f"{plm['cuda'][1]:.2f} s (CPU {plm['cpu'][1]:.2f} s); launches "
+              f"{plm['cuda'][2]}")
+        if (hp.round_names != ["keras_Adam", "jax_LM"]
+                or hp.iters != hpr.iters or d_plm > HISTORY_BAR
+                or any(plm["cuda"][2].values())
+                or not hp.loss_global[-1] < hp.loss_global[0]):
+            raise AssertionError("Poisson LM route failed")
+        record["coronary_lm"] = {
+            "launches": co_lm_launches, "evaluations": co_lm_evals,
+            "devs": co_lm_devs, "split": co_split,
+            "loss_first": hl.loss_global[len(hc.iters) - 1],
+            "loss_last": hl.loss_global[-1],
+            "poisson": {"dev": d_plm, "ms_per_lm_iteration": p_lm_ms,
+                        "wall_s": plm["cuda"][1],
+                        "cpu_wall_s": plm["cpu"][1]}}
+
     # launches on each path that runs the kernel, each read around its run;
     # "launches" is the count on the main path of the kernel's slice
     paths = {"4 Poiseuille Adam": launches,
@@ -2340,7 +2625,10 @@ def main():
              "20 Poisson Adam + L-BFGS": p_lbfgs_launches,
              "21 Poiseuille cosine Adam": cos_launches,
              "22 Cavity_Unsteady Adam + BFGS (d_in 3)": cav_launches,
-             "26 Cavity_Steady Adam + BFGS": cs_launches}
+             "26 Cavity_Steady Adam + BFGS": cs_launches,
+             "29 Coronary Adam + BFGS": co_launches,
+             "30 Coronary LM (opt-in)": co_lm_launches,
+             "30 Poisson LM": plm["cuda"][2]}
 
     def kernel_row(name, key, route_src, replaces, main, row, n):
         d_ms, per_call, _ = dev_t[(name, n)]
@@ -2375,14 +2663,22 @@ def main():
     kernels.append({
         "name": "taylor_bundle", "route": "cuda",
         "source": "tpinn_torch/kernels/csrc/taylor_bundle.cu",
-        "replaces": f"{ref}:235", "launches": lm_launches["taylor_bundle"],
+        "replaces": f"{ref}:235",
+        "launches": co_lm_launches["taylor_bundle"],
         "max_abs_err": errs["taylor_bundle"], "ms": b_row["kernel"],
         "plain_ms": b_row["plain"], "bound_ms": b_row["bound"],
         "bound_by": b_row["bound_by"], "library_ms": None,
         "device_ms": b_dev, "launches_per_call": b_per_call,
         "bound_probe_ms": attain["taylor_bundle"],
         "launches_by_path": {k: v["taylor_bundle"] for k, v in paths.items()
-                             if v["taylor_bundle"]}})
+                             if v["taylor_bundle"]},
+        # the coronary LM route's shapes (phase 30): each outflow and the
+        # PDE batch, beside the main shape
+        "by_n": {n: {"ms": times[("bundle", "float64", n)]["kernel"],
+                     "plain_ms": times[("bundle", "float64", n)]["plain"],
+                     "bound_ms": times[("bundle", "float64", n)]["bound"],
+                     "device_ms": dev_t[("taylor_bundle", n)][0]}
+                 for n in (33, 1000, 3000)}})
     # the probe's bodies: a measurement entry point, on no slice's path;
     # "launches" counts phase 24's rate runs, the times are float64, S 5
     for body in rp.BODIES:

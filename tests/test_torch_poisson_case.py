@@ -12,6 +12,7 @@ the measured deviations are ≤ 5e-13 over the Adam part and ≤ 1.4e-10 after
 iterations).
 """
 
+import contextlib
 import importlib.util
 import json
 import os
@@ -36,11 +37,21 @@ from tpinn_torch.problem import OptimizationProblem
 
 torch.set_num_threads(1)
 
+try:
+    # numpy's BLAS on one thread in the LM rounds, as torch here: the suite
+    # runs several workers, each of whose eigh would spin on every core
+    from threadpoolctl import threadpool_limits as blas_threads
+except ImportError:  # without threadpoolctl the threads stay as they are
+    def blas_threads(limit):
+        return contextlib.nullcontext()
+
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 W = 2 * np.pi
 ADAM_BAR = 1e-10
 SCIPY_BAR = 1e-8
 SCIPY_ITERS = 20
+LM_ITERS = 5
+LM_BAR = 1e-8
 
 
 def _example(name):
@@ -87,21 +98,22 @@ def _rel_devs(h_ref, h, rounds):
     return max(_rel_devs_at(h_ref, h, sel))
 
 
-def _run_pair(name, scipy_iters, out_dir):
+def _run_pair(name, scipy_iters, out_dir, second_round="scipy"):
     """(tpinn's problem, the port's problem) after the example's rounds:
-    100 Adam epochs, then ``scipy_iters`` L-BFGS-B iterations, from the
-    same θ0 and points."""
+    100 Adam epochs, then ``scipy_iters`` iterations of ``second_round``
+    (L-BFGS-B by default), from the same θ0 and points."""
     params, x_pde, x_test, edges, (d0, d1, n0, n1) = _jax_draws()
     jpb, _ = _example(name).main(scipy_iters, save_plots=False,
-                                 out_dir=out_dir)
+                                 out_dir=out_dir, second_round=second_round)
     if name == "poisson":
         tpb, _ = poisson.from_arrays(x_pde, np.concatenate(edges), x_test,
-                                     params, device="cpu")
+                                     params, device="cpu",
+                                     second_round=second_round)
     else:
         tpb, _ = poisson_misto.from_arrays(
             x_pde, np.concatenate([d0, d1]), np.concatenate([n0, n1]),
-            x_test, params, device="cpu")
-    poisson.train(tpb, scipy_iters)
+            x_test, params, device="cpu", second_round=second_round)
+    poisson.train(tpb, scipy_iters, second_round)
     return jpb, tpb
 
 
@@ -137,6 +149,25 @@ def test_poisson_misto_history_matches_tpinn(tmp_path):
     _check_parity(jpb, tpb)
 
 
+@pytest.mark.parametrize("name", ["poisson", "poisson_misto"])
+def test_lm_route_matches_tpinn(tmp_path, name):
+    """Adam 100 + LM 5 from tpinn's θ0 and points: the PDE loss is the tape
+    closure (not the fused objective) and every training loss has its
+    point residual, as the example routes an LM-bound run; every log point
+    within 1e-8 of the example's."""
+    with blas_threads(1):
+        jpb, tpb = _run_pair(name, LM_ITERS, str(tmp_path / "jax"), "lm")
+    assert type(tpb.losses[0]) is LossMeanSquares
+    assert all(l.point_residual is not None for l in tpb.losses)
+    hj, ht = jpb.history, tpb.history
+    assert ht.round_names == hj.round_names == ["keras_Adam", "jax_LM"]
+    assert ht.iters == hj.iters and ht.round_starts == hj.round_starts
+    assert ht.iter_round[-1] == hj.iter_round[-1] == LM_ITERS
+    assert max(_rel_devs_at(hj, ht, list(range(len(hj.iters))))) < LM_BAR
+    lm_start = ht.rounds_idx.index(2)
+    assert ht.loss_global[-1] < 0.5 * ht.loss_global[lm_start]
+
+
 @pytest.mark.parametrize("case,name", [(poisson, "Poisson"),
                                        (poisson_misto, "Poisson_misto")])
 def test_main_writes_history(tmp_path, case, name):
@@ -162,12 +193,17 @@ def test_main_writes_history(tmp_path, case, name):
 
 
 def test_main_refuses_unported_second_round(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        poisson.main(5, out_dir=str(tmp_path), second_round="lm",
-                     device="cpu")
+    """The LM route runs through ``main`` (it raised before it was ported);
+    ``main`` without an output directory still refuses."""
     with pytest.raises(ValueError, match="out_dir"):
         poisson_misto.main(5, device="cpu")
     assert not os.listdir(tmp_path)
+    pb, _ = poisson.main(2, out_dir=str(tmp_path), second_round="lm",
+                         device="cpu")
+    h = pb.history
+    assert h.round_names == ["keras_Adam", "jax_LM"]
+    assert h.iter_round[-1] == 2 and np.isfinite(h.loss_global).all()
+    assert os.listdir(tmp_path / "Images") == ["Poisson_history_loss.json"]
 
 
 def test_scipy_round_logs_like_tpinn():

@@ -7,15 +7,18 @@
 A 2→20→20→20→1 tanh MLP (layer 0 folds the input extents), 200 PDE points,
 20 boundary points per edge, 1000 test points; Adam at lr 1e-2 for 100
 epochs, then scipy's L-BFGS-B (or, with ``--second-round jax-bfgs``, the
-on-device dense BFGS; with ``jax``, the on-device L-BFGS) for ``epochs``
-iterations, in float64.  The PDE loss
+on-device dense BFGS; with ``jax``, the on-device L-BFGS; with ``lm``,
+Levenberg–Marquardt) for ``epochs`` iterations, in float64.  The PDE loss
 goes through the fused one-pass Poisson objective when the CUDA kernels
 take the net (on the card: one launch of the backward kernel per Adam step,
 scipy evaluation or (L-)BFGS trial, the forward kernel at log points), else
-through the tape.  Run with::
+through the tape.  An LM-bound run keeps the tape closure, whose residual
+vector the LM round stacks, and every training loss carries its
+``point_residual`` for the round's per-point Gram, as the examples route
+it.  Run with::
 
     python -m tpinn_torch.cases.poisson --out-dir OUT [--epochs 500] \
-        [--second-round scipy|jax-bfgs|jax] [--device cpu]
+        [--second-round scipy|jax-bfgs|jax|lm] [--device cpu]
 
 It writes ``OUT/Images/Poisson_history_loss.json``.
 """
@@ -34,12 +37,17 @@ from tpinn_torch.experimental.physics import tens_style as operator
 from tpinn_torch.geometry import sample_box
 from tpinn_torch.losses import PrecomputedMeanSquares
 from tpinn_torch.oracles import analytic
-from tpinn_torch.pipeline import FusedPoissonObjective, use_fused_pde_losses
+from tpinn_torch.pipeline import (
+    FusedPoissonObjective,
+    taylor_tri_fn,
+    use_fused_pde_losses,
+)
 
 DIM = 2
 W = 2 * np.pi
 NUM_PDE, NUM_BC, NUM_TEST = 200, 20, 1000
 ADAM_EPOCHS = 100
+LM_ROUNDS = ("lm", "jax-lm", "gn")
 
 
 def make_model(device, generator=None, seed: int = 1, params=None):
@@ -58,10 +66,13 @@ def as_points(a, model) -> torch.Tensor:
                            device=model.device)
 
 
-def pde_loss(model, x_PDE, f, weight: float):
+def pde_loss(model, x_PDE, f, weight: float, second_round: str = "scipy"):
     """The PDE loss as the examples route it: the fused one-pass objective
-    for a net the kernels take, else −Δu − f through the tape."""
-    if use_fused_pde_losses(model, False, DIM):
+    for a net the kernels take, except for an LM-bound run; else −Δu − f
+    through the tape, with its point residual (−Δu(xᵢ) − fᵢ from the
+    closed-form Hessian diagonal) for the LM round."""
+    if second_round not in LM_ROUNDS and use_fused_pde_losses(model, False,
+                                                              DIM):
         fused = FusedPoissonObjective(model, x_PDE, f, weight=weight)
         return PrecomputedMeanSquares("PDE", fused.loss_fn(), weight=weight)
 
@@ -72,48 +83,61 @@ def pde_loss(model, x_PDE, f, weight: float):
             laplacian = operator.laplacian_scalar(tape, u, x_PDE, DIM)
         return -laplacian - f
 
-    return ns.LossMeanSquares("PDE", PDE, weight=weight)
+    tri = taylor_tri_fn(model, DIM)
+
+    def pde_pt(params, xi, f_i):
+        _, _, hdiag = tri(params, xi[None, :])
+        return -(hdiag[0, 0, 0] + hdiag[0, 0, 1]) - f_i
+
+    return ns.LossMeanSquares("PDE", PDE, weight=weight,
+                              point_residual=(pde_pt, (x_PDE, f)))
+
+
+def value_point_residual(model):
+    """fn(params, xi) -> u(xi): the point residual of a u = 0 boundary
+    loss."""
+    return lambda params, xi: model.apply(params, xi[None, :])[0, 0]
 
 
 def train(pb, epochs: int, second_round: str = "scipy") -> None:
     """Adam at lr 1e-2 for 100 epochs, then ``epochs`` iterations of the
     second round: "scipy" the host L-BFGS-B, "jax-bfgs" / "bfgs" the
-    on-device dense BFGS, any other name the on-device L-BFGS, as the
-    examples route them.  The LM round ("lm", "jax-lm", "gn") is not
-    ported for these cases and raises before training."""
-    if second_round in ("lm", "jax-lm", "gn"):
-        raise NotImplementedError(
-            f"second round {second_round!r}: the LM round of the Poisson "
-            "cases (their per-point residuals) is not ported yet "
-            "(ROADMAP.md, port queue 1, item 8)")
+    on-device dense BFGS, "lm" / "jax-lm" / "gn" Levenberg–Marquardt, any
+    other name the on-device L-BFGS, as the examples route them."""
     ns.minimize(pb, "keras", ns.optimizers.Adam(learning_rate=1e-2),
                 num_epochs=ADAM_EPOCHS)
     if second_round == "scipy":
         ns.minimize(pb, "scipy", "L-BFGS-B", num_epochs=epochs)
     elif second_round in ("jax-bfgs", "bfgs"):
         ns.minimize(pb, "jax", "BFGS", num_epochs=epochs)
+    elif second_round in LM_ROUNDS:
+        ns.minimize(pb, "jax", "LM", num_epochs=epochs)
     else:
         ns.minimize(pb, "jax", "L-BFGS", num_epochs=epochs)
 
 
-def build(model, x_PDE, x_BC, x_test):
-    """The optimization problem on the given points."""
+def build(model, x_PDE, x_BC, x_test, second_round: str = "scipy"):
+    """The optimization problem on the given points, its PDE loss routed
+    for ``second_round``."""
     u_test = analytic.poisson_exact(x_test)[:, None]
     f = analytic.poisson_forcing(x_PDE)
     losses = [
-        pde_loss(model, x_PDE, f, weight=2.0),
-        ns.LossMeanSquares("BC", lambda: model(x_BC)),
+        pde_loss(model, x_PDE, f, weight=2.0, second_round=second_round),
+        ns.LossMeanSquares("BC", lambda: model(x_BC),
+                           point_residual=(value_point_residual(model),
+                                           (x_BC,))),
     ]
     loss_test = ns.LossMeanSquares("fit", lambda: model(x_test) - u_test)
     return ns.OptimizationProblem(model.variables, losses, loss_test)
 
 
-def from_arrays(x_PDE, x_BC, x_test, params, device=None):
+def from_arrays(x_PDE, x_BC, x_test, params, device=None,
+                second_round: str = "scipy"):
     """(pb, model) from given points and initial weights (numpy), e.g. the
     JAX package's draws."""
     model = make_model(device, params=params)
     pts = [as_points(a, model) for a in (x_PDE, x_BC, x_test)]
-    return build(model, *pts), model
+    return build(model, *pts, second_round=second_round), model
 
 
 def sample_points(generator: torch.Generator, model):
@@ -136,7 +160,7 @@ def main(epochs: int = 500, out_dir: str = None, second_round: str = "scipy",
         raise ValueError("out_dir is required")
     gen = torch.Generator().manual_seed(seed)
     model = make_model(device, generator=gen)
-    pb = build(model, *sample_points(gen, model))
+    pb = build(model, *sample_points(gen, model), second_round=second_round)
     train(pb, epochs, second_round)
 
     os.makedirs(os.path.join(out_dir, "Images"), exist_ok=True)
@@ -157,9 +181,9 @@ def cli(main_fn, default_epochs: int):
     ap.add_argument("--device", default=None,
                     help="default: the CUDA card; 'cpu' runs the plain path")
     ap.add_argument("--second-round", default="scipy",
-                    choices=["scipy", "jax", "jax-bfgs", "bfgs"],
-                    help="the host L-BFGS-B, the on-device L-BFGS or the "
-                         "on-device dense BFGS")
+                    choices=["scipy", "jax", "jax-bfgs", "bfgs", "lm"],
+                    help="the host L-BFGS-B, the on-device L-BFGS, the "
+                         "on-device dense BFGS or Levenberg-Marquardt")
     ap.add_argument("--plots", action="store_true",
                     help="also plot the history (needs matplotlib)")
     args = ap.parse_args()

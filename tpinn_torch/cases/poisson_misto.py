@@ -10,7 +10,7 @@ the PDE weight 1e2 and 7500 second-round iterations by default.  Run
 with::
 
     python -m tpinn_torch.cases.poisson_misto --out-dir OUT \
-        [--second-round scipy|jax-bfgs|jax] [--device cpu]
+        [--second-round scipy|jax-bfgs|jax|lm] [--device cpu]
 
 It writes ``OUT/Images/Poisson_misto_history_loss.json``.
 """
@@ -32,14 +32,17 @@ from tpinn_torch.cases.poisson import (
     make_model,
     pde_loss,
     train,
+    value_point_residual,
 )
 from tpinn_torch.experimental.physics import tens_style as operator
 from tpinn_torch.geometry import sample_box
 from tpinn_torch.oracles import analytic
+from tpinn_torch.pipeline import taylor_tri_fn
 
 
-def build(model, x_PDE, x_BC_D, x_BC_N, x_test):
-    """The optimization problem on the given points."""
+def build(model, x_PDE, x_BC_D, x_BC_N, x_test, second_round: str = "scipy"):
+    """The optimization problem on the given points, its PDE loss routed
+    for ``second_round``."""
     u_test = analytic.poisson_exact(x_test)[:, None]
     f = analytic.poisson_forcing(x_PDE)
     g_N = analytic.poisson_neumann_x(x_BC_N)
@@ -51,20 +54,30 @@ def build(model, x_PDE, x_BC_D, x_BC_N, x_test):
             du = operator.gradient_scalar(tape, u, x_BC_N)
         return du[:, 0] - g_N
 
+    tri = taylor_tri_fn(model, 2)
+
+    def bcn_pt(params, xi, g_i):
+        _, jac, _ = tri(params, xi[None, :])
+        return jac[0, 0, 0] - g_i
+
     losses = [
-        pde_loss(model, x_PDE, f, weight=1e2),
-        ns.LossMeanSquares("BC_D", lambda: model(x_BC_D)),
-        ns.LossMeanSquares("BC_N", BC_N),
+        pde_loss(model, x_PDE, f, weight=1e2, second_round=second_round),
+        ns.LossMeanSquares("BC_D", lambda: model(x_BC_D),
+                           point_residual=(value_point_residual(model),
+                                           (x_BC_D,))),
+        ns.LossMeanSquares("BC_N", BC_N,
+                           point_residual=(bcn_pt, (x_BC_N, g_N))),
     ]
     loss_test = ns.LossMeanSquares("fit", lambda: model(x_test) - u_test)
     return ns.OptimizationProblem(model.variables, losses, loss_test)
 
 
-def from_arrays(x_PDE, x_BC_D, x_BC_N, x_test, params, device=None):
+def from_arrays(x_PDE, x_BC_D, x_BC_N, x_test, params, device=None,
+                second_round: str = "scipy"):
     """(pb, model) from given points and initial weights (numpy)."""
     model = make_model(device, params=params)
     pts = [as_points(a, model) for a in (x_PDE, x_BC_D, x_BC_N, x_test)]
-    return build(model, *pts), model
+    return build(model, *pts, second_round=second_round), model
 
 
 def sample_points(generator: torch.Generator, model):
@@ -89,7 +102,7 @@ def main(epochs: int = 7500, out_dir: str = None,
     gen = torch.Generator().manual_seed(seed)
     model = make_model(device, generator=gen)
     pts = sample_points(gen, model)
-    pb = build(model, *pts)
+    pb = build(model, *pts, second_round=second_round)
     train(pb, epochs, second_round)
 
     os.makedirs(os.path.join(out_dir, "Images"), exist_ok=True)

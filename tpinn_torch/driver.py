@@ -134,6 +134,35 @@ def run_second_round(pb: OptimizationProblem, second_round: Optional[str],
         minimize(pb, "keras", Adam(schedule), num_epochs=epochs)
 
 
+def resume_run(pb: OptimizationProblem, folder: str) -> None:
+    """Load a saved run folder into ``pb`` to continue it: the weights
+    (Weights.h5, else Weights.npz), then ``checkpoint.pkl`` where it is at
+    least as new as the weights (its parameters, and its optimizer state on
+    ``pb.resume_opt_state`` for the second round of the same kind to
+    adopt), then History_Loss.json with ``pb``'s losses registered."""
+    model = pb.model
+    weights = ckpt.weights_file(folder)
+    if weights is None:
+        raise FileNotFoundError(f"{folder} holds no Weights.h5 or "
+                                "Weights.npz")
+    model.load_weights(weights)
+    path = os.path.join(folder, "checkpoint.pkl")
+    # a killed round leaves checkpoint.pkl ahead of the final weights;
+    # save_experiment writes it just after them, possibly within one tick
+    # of the file system's clock, so an equal time counts as newer
+    if (os.path.exists(path)
+            and os.path.getmtime(path) >= os.path.getmtime(weights)):
+        state = ckpt.load_checkpoint(path)
+        model.set_params([
+            {k: torch.as_tensor(np.asarray(p[k]), dtype=model.dtype)
+             for k in ("kernel", "bias")} for p in state["params"]])
+        pb.resume_opt_state = state.get("opt_state")
+    hist = os.path.join(folder, "History_Loss.json")
+    if os.path.exists(hist):
+        pb.history = History.load(hist)
+        pb.history.register_losses(pb.losses, pb.losses_test)
+
+
 @dataclasses.dataclass
 class CaseSpec:
     """Declarative description of a rectangular Navier–Stokes PINN case."""
@@ -520,26 +549,7 @@ class StandardNSDriver:
         return pb
 
     def _resume(self, pb: OptimizationProblem, folder: str) -> None:
-        weights = ckpt.weights_file(folder)
-        if weights is None:
-            raise FileNotFoundError(f"{folder} holds no Weights.h5 or "
-                                    "Weights.npz")
-        self.model.load_weights(weights)
-        path = os.path.join(folder, "checkpoint.pkl")
-        # a killed round leaves checkpoint.pkl ahead of the final weights;
-        # save_experiment writes it just after them, possibly within one
-        # tick of the file system's clock, so an equal time counts as newer
-        if (os.path.exists(path)
-                and os.path.getmtime(path) >= os.path.getmtime(weights)):
-            state = ckpt.load_checkpoint(path)
-            self.model.set_params([
-                {k: torch.as_tensor(np.asarray(p[k]), dtype=self.dtype)
-                 for k in ("kernel", "bias")} for p in state["params"]])
-            pb.resume_opt_state = state.get("opt_state")
-        hist = os.path.join(folder, "History_Loss.json")
-        if os.path.exists(hist):
-            pb.history = History.load(hist)
-            pb.history.register_losses(self.losses, self.losses_test)
+        resume_run(pb, folder)
 
     # ----------------------------------------------------------------- output
     def _grid_points(self, gx, gy) -> np.ndarray:

@@ -56,7 +56,7 @@ class LossMeanSquares(Loss):
     ``point_residual`` (optional) is the pointwise form of the residual,
     ``(point_fn, args)`` with ``point_fn(params, *args_i) -> scalar`` for
     row i, as the reference's cases pass it for the Levenberg–Marquardt
-    round's per-point Gram.  It is stored; no ported round reads it yet."""
+    round's per-point Gram, which reads it."""
 
     display_sqrt = True
 

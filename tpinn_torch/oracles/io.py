@@ -17,6 +17,9 @@ layouts.
   alone: each value is written as its shortest round-trip repr (the text
   pandas writes), so it reads back exactly.
 * The ``.xdmf`` wrapper naming a fields h5, as plain text.
+* ``bpoints.npy``, the coronary case's (K, 4) labeled boundary points
+  [x, y, z, flag] with flags 0 NOSL (wall), 1 INF (inflow), 2 OUT1 and
+  3 OUT2 (the two outflows).
 
 Every writer writes a temporary file beside the target and renames it over
 the target, so a symlinked target (committed data linked into a run's data
@@ -57,11 +60,16 @@ def _require_h5py(path: str) -> None:
                           "install h5py or remove the file to make it anew")
 
 
-def write_fields(path: str, u, v, p, geometry=None) -> str:
+def write_fields(path: str, u, v, p, geometry=None, names=None) -> str:
     """One set of vertex fields at ``path`` (its extension .h5 or .npz),
     with the vertex coordinates when ``geometry`` (M, 2) is given; returns
-    the path written."""
-    arrays = {_VEL: np.stack([u, v], axis=-1), _PRES: np.asarray(p)}
+    the path written.  With ``names`` (three dataset names) the fields are
+    written flat under those names instead (the coronary case's
+    ``sol_pinn``: u_pinn, v_pinn, p_pinn)."""
+    if names is not None:
+        arrays = {name: np.asarray(a) for name, a in zip(names, (u, v, p))}
+    else:
+        arrays = {_VEL: np.stack([u, v], axis=-1), _PRES: np.asarray(p)}
     if geometry is not None:
         arrays[_GEOM] = np.asarray(geometry)
     tmp = _temporary(path)
@@ -107,7 +115,7 @@ def read_mesh_geometry(path: str) -> np.ndarray:
         return f[_GEOM]
 
 
-def _find(stem: str) -> str:
+def find_fields(stem: str) -> str:
     """``stem`` with the extension a new file takes (``fields_ext``) where
     that exists, else with the other; FileNotFoundError if neither
     exists."""
@@ -123,18 +131,20 @@ def steady_path(folder: str, ext: str = ".h5") -> str:
 
 
 def find_steady_path(folder: str) -> str:
-    """The steady fields file in ``folder`` (see ``_find``)."""
-    return _find(steady_path(folder, ""))
+    """The steady fields file in ``folder`` (see ``find_fields``)."""
+    return find_fields(steady_path(folder, ""))
 
 
-def unsteady_path(folder: str, step: int, ext: str = ".h5") -> str:
-    return os.path.join(folder,
-                        f"navier-stokes_SI_cavity_unsteady_{step:05d}{ext}")
+def unsteady_path(folder: str, step: int, ext: str = ".h5",
+                  testcase: str = "cavity") -> str:
+    return os.path.join(
+        folder, f"navier-stokes_SI_{testcase}_unsteady_{step:05d}{ext}")
 
 
-def find_unsteady_path(folder: str, step: int) -> str:
-    """The step's fields file (see ``_find``)."""
-    return _find(unsteady_path(folder, step, ""))
+def find_unsteady_path(folder: str, step: int,
+                       testcase: str = "cavity") -> str:
+    """The step's fields file (see ``find_fields``)."""
+    return find_fields(unsteady_path(folder, step, "", testcase))
 
 
 def write_unsteady_series(folder: str, snaps: Sequence[Tuple]) -> list:
@@ -204,3 +214,17 @@ def write_xdmf(path: str, h5_filename: str, n_points: int,
     with open(tmp, "w") as f:
         f.write(xml)
     os.replace(tmp, path)
+
+
+def bpoints_to_dict(arr: np.ndarray) -> Dict[str, np.ndarray]:
+    """(K, 4) labeled array -> {NOSL, INF, OUT1, OUT2} of (K_i, 2) arrays,
+    each in the array's order."""
+    flags = {"NOSL": 0, "INF": 1, "OUT1": 2, "OUT2": 3}
+    return {name: arr[arr[:, 3] == flag][:, 0:2]
+            for name, flag in flags.items()}
+
+
+def load_bpoints(path: str) -> Dict[str, np.ndarray]:
+    """The labeled boundary points of a ``bpoints.npy``:
+    {NOSL, INF, OUT1, OUT2} -> (K_i, 2) arrays."""
+    return bpoints_to_dict(np.load(path))

@@ -1,5 +1,6 @@
 """The figures a case writes with its artifacts: the exact-vs-PINN contour
-grid (Graphic.jpg), the unsteady case's per-time-slice grids
+grid (Graphic.jpg; on scattered mesh nodes for the coronary case), the
+unsteady case's per-time-slice grids
 (Graphic_{i}_of_{n}.jpg) and the grouped loss trend
 (Loss_Trend_Reduced.png); and the 3-D exact-vs-PINN scatter of the
 hand-rolled cases.
@@ -50,13 +51,11 @@ def shared_levels(exact, pinn, num_levels: int = 11) -> np.ndarray:
     return np.linspace(lo, hi, num_levels)
 
 
-def contour_compare(grid_x, grid_y, exact_fields: Sequence,
-                    pinn_fields: Sequence,
-                    titles: Sequence[str] = ("u-velocity", "v-velocity",
-                                             "Pressure"),
-                    problem_name: str = "", filename: Optional[str] = None,
-                    num_levels: int = 11):
-    """The n×2 exact-vs-PINN contour figure (Graphic.jpg)."""
+def _compare_figure(draw, exact_fields: Sequence, pinn_fields: Sequence,
+                    titles: Sequence[str], problem_name: str,
+                    filename: Optional[str], num_levels: int):
+    """The n×2 exact-vs-PINN figure, each panel drawn by
+    ``draw(ax, field, levels)``."""
     plt = _plt()
     n = len(exact_fields)
     fig, axes = plt.subplots(n, 2, figsize=(12, 8))
@@ -71,13 +70,42 @@ def contour_compare(grid_x, grid_y, exact_fields: Sequence,
                 [(ex, f"Numerical {title}"), (pinn, f"PINNS {title}")]):
             ax = axes[row][col]
             ax.title.set_text(label)
-            cs = ax.contourf(grid_x, grid_y, field, levels=levels)
-            fig.colorbar(cs, ax=ax)
+            fig.colorbar(draw(ax, field, levels), ax=ax)
     plt.tight_layout()
     if filename:
         fig.savefig(filename)
         plt.close(fig)
     return fig
+
+
+def contour_compare(grid_x, grid_y, exact_fields: Sequence,
+                    pinn_fields: Sequence,
+                    titles: Sequence[str] = ("u-velocity", "v-velocity",
+                                             "Pressure"),
+                    problem_name: str = "", filename: Optional[str] = None,
+                    num_levels: int = 11):
+    """The n×2 exact-vs-PINN contour figure (Graphic.jpg)."""
+    return _compare_figure(
+        lambda ax, field, levels: ax.contourf(grid_x, grid_y, field,
+                                              levels=levels),
+        exact_fields, pinn_fields, titles, problem_name, filename,
+        num_levels)
+
+
+def tricontour_compare(x, y, exact_fields: Sequence, pinn_fields: Sequence,
+                       titles: Sequence[str] = ("u-velocity", "v-velocity",
+                                                "Pressure"),
+                       problem_name: str = "",
+                       filename: Optional[str] = None,
+                       num_levels: int = 11):
+    """The same figure on scattered nodes (an unstructured mesh, the
+    coronary case), filled contours over their Delaunay triangulation."""
+    x, y = np.asarray(x), np.asarray(y)
+    return _compare_figure(
+        lambda ax, field, levels: ax.tricontourf(x, y, np.asarray(field),
+                                                 levels=levels),
+        exact_fields, pinn_fields, titles, problem_name, filename,
+        num_levels)
 
 
 def scatter3d_compare(x, y, exact, pinn, filename: Optional[str] = None,
