@@ -200,7 +200,40 @@ exits non-zero:
    launch) at 1e-8 over every log, each with its LM iteration split
    (residuals, Gram, download, eigh, accept); then the Poisson case's LM
    route (Adam 100 + LM 10, the tape PDE loss, no kernel) card against CPU
-   at 1e-8.
+   at 1e-8; phases 11 and 30 take the host eigh (TPINN_LM_SOLVER=host);
+31. the device damping ladder at full width: phase 30's coronary resume
+   (LM 5, TPINN_USE_PALLAS=1) on the card's default solver, which is the
+   ladder, with kernel 5 three times per evaluation of the training
+   losses (the ladder's candidates included), held against the ladder
+   forced on the CPU at 1e-8 over every log and against phase 30's host
+   eigh (the loss falls, the final loss within 5 %); its iteration split
+   (residuals, Gram, power iteration, and per rung the Cholesky, solve and
+   candidate evaluation), rungs per iteration and ms per iteration beside
+   the host eigh's; phase 11's Poiseuille LM 10 on the ladder against its
+   host eigh at rtol 1e-3 (tpinn's own bar);
+32. LM resume on the card: Poiseuille LM 3, then its run folder resumed
+   by LM 2, equal to LM 5 straight bit for bit (the carry θ and the last
+   logs), on the host eigh and on the ladder;
+33. LM's chunked Jacobian: the Poisson case (Adam 100 + LM 10) with every
+   point residual stripped, against the same run on the fast Gram: JᵀJ
+   and Jᵀr at the LM round's θ0 within 1e-10 of the largest entry, every
+   log within 1e-8, and ms per LM iteration of both;
+34. the float32 split carries: Poiseuille at the reference options in
+   float32 with TPINN_USE_PALLAS=0 (residual losses): Adam 100, dense
+   BFGS 20 (``bfgs_split``) and LM 5 (the split carry) on the card against
+   the CPU over every log: Adam and BFGS at 1e-4, LM at 1e-2 (the two
+   float32 Grams' rounding, amplified by the damped solve), also the LM
+   round on the card from the CPU's BFGS result; the witnesses of that
+   gap, each an LM 5 from the CPU's BFGS result: the card's loop fed the
+   CPU's JᵀJ at 1e-3, and both sides with JᵀJ promoted to float64 before
+   the eigh (recorded); the lo channel nonzero after each round, ms per
+   BFGS and LM iteration;
+35. the generic operators: ``vtaylor_bundle`` of a 2-32-32-32-3 tanh net
+   at 1,000 points against ``mlp_taylor_batched`` at 1e-12 of the largest
+   value, then a 2-32-32-32-3 sin net on Poiseuille's reference points
+   through the generic ``ResidualBundle`` (the Poiseuille driver's model
+   replaced and its losses built anew; Adam 100 + LM 5, the ladder forced
+   on both sides) card against CPU at 1e-8.
 
 The line before the last is the kernels' JSON record (each kernel's
 launches on every path that runs it, ``launches`` being its slice's main
@@ -279,6 +312,25 @@ OLD_ITERS = 10
 CORONARY_ITERS = 20
 CORONARY_LM_ITERS = 5
 POISSON_LM_ITERS = 10
+# the device ladder against the host eigh on Poiseuille (phase 31): tpinn's
+# own bar (tests/test_lm_fast_gram.py)
+LADDER_BAR = 1e-3
+# the float32 split carries (phase 34): dense BFGS, then LM, card vs CPU
+# over every log
+SPLIT_BFGS_ITERS = 20
+SPLIT_LM_ITERS = 5
+SPLIT_BAR = 1e-4
+# float32 LM, card vs CPU: the two float32 Grams differ by 2.7e-6 to
+# 7.5e-6 of JᵀJ's largest entry (two summation orders), and the damped
+# solve amplifies that by about 1/μ: measured 5.71e-3 from one starting
+# point and 5.77e-3 chained after the BFGS round, the same in every run;
+# JᵀJ promoted to float64 before the eigh still 5.26e-3 (the eigh is not
+# the cause); the card's loop fed the CPU's JᵀJ 3.10e-4, Jᵀr's rounding
+# amplified alike (phase 34, PERF.md section 5)
+SPLIT_LM_BAR = 1e-2
+SPLIT_LM_FED_BAR = 1e-3
+# the sin net's LM round on the generic bundles (phase 35)
+GENERIC_LM_ITERS = 5
 
 
 def phase(name):
@@ -615,8 +667,10 @@ def main():
     from tpinn_torch.kernels import mlp_bundle as mb
 
     dev = torch.device("cuda", 0)
-    # phases 1-10 run the default routing; phase 11 sets the opt-in itself
+    # phases 1-10 run the default routing; phase 11 sets the opt-in itself,
+    # and each LM phase its solver
     os.environ.pop("TPINN_USE_PALLAS", None)
+    os.environ.pop("TPINN_LM_SOLVER", None)
     t_all = time.perf_counter()
     record = {}
     # data that later phases read again (phase 22's series, phase 25's
@@ -1143,7 +1197,9 @@ def main():
     with phase("11 the slice: Poiseuille LM round under TPINN_USE_PALLAS=1"):
         from tpinn_torch.cases import poiseuille_flow
 
-        def lm_round(device, opt_in):
+        def lm_round(device, opt_in, solver="host"):
+            # the host eigh (phase 31 runs the card's default, the ladder)
+            os.environ["TPINN_LM_SOLVER"] = solver
             if opt_in:
                 os.environ["TPINN_USE_PALLAS"] = "1"
             try:
@@ -1159,6 +1215,7 @@ def main():
                             dict(mb.LAUNCHES))
             finally:
                 os.environ.pop("TPINN_USE_PALLAS", None)
+                os.environ.pop("TPINN_LM_SOLVER", None)
 
         lm_pb, lm_wall, lm_launches = lm_round("cuda", True)
         h = lm_pb.history
@@ -2493,7 +2550,8 @@ def main():
         # the stacked residuals and the logged evaluations
         evaluations = []
         real_methods = {name: getattr(OptimizationProblem, name)
-                        for name in ("residuals_at", "eval_all")}
+                        for name in ("residuals_at", "residuals_flat",
+                                     "eval_all")}
 
         def counted(real):
             def method(self, *args):
@@ -2501,10 +2559,11 @@ def main():
                 return real(self, *args)
             return method
 
-        def coronary_lm(name, device, opt_in):
+        def coronary_lm(name, device, opt_in, solver="host"):
             base = coronary_base(f"coronary_lm_{name}")
             folder = os.path.join(base, "Test_Case_#001")
             shutil.copytree(co_folder, folder)
+            os.environ["TPINN_LM_SOLVER"] = solver
             if opt_in:
                 os.environ["TPINN_USE_PALLAS"] = "1"
             for attr, real in real_methods.items():
@@ -2522,6 +2581,7 @@ def main():
                         len(evaluations))
             finally:
                 os.environ.pop("TPINN_USE_PALLAS", None)
+                os.environ.pop("TPINN_LM_SOLVER", None)
                 for attr, real in real_methods.items():
                     setattr(OptimizationProblem, attr, real)
 
@@ -2579,16 +2639,20 @@ def main():
                                  f"{co_lm_devs}")
         # the Poisson case's LM route: the tape PDE loss, no kernel
         plm = {}
-        for device in ("cuda", "cpu"):
-            with tempfile.TemporaryDirectory() as td:
-                mb.reset_launch_counts()
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                pb, _ = poisson.main(POISSON_LM_ITERS, out_dir=td,
-                                     second_round="lm", device=device)
-                torch.cuda.synchronize()
-                plm[device] = (pb, time.perf_counter() - t0,
-                               dict(mb.LAUNCHES))
+        os.environ["TPINN_LM_SOLVER"] = "host"
+        try:
+            for device in ("cuda", "cpu"):
+                with tempfile.TemporaryDirectory() as td:
+                    mb.reset_launch_counts()
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    pb, _ = poisson.main(POISSON_LM_ITERS, out_dir=td,
+                                         second_round="lm", device=device)
+                    torch.cuda.synchronize()
+                    plm[device] = (pb, time.perf_counter() - t0,
+                                   dict(mb.LAUNCHES))
+        finally:
+            os.environ.pop("TPINN_LM_SOLVER", None)
         hp, hpr = plm["cuda"][0].history, plm["cpu"][0].history
         d_plm = rel_dev(hpr, hp, list(range(len(hp.iters))))
         p_lm_ms = 1e3 * hp.wall_times[1] / len(plm["cuda"][0].lm_times)
@@ -2613,6 +2677,404 @@ def main():
                         "wall_s": plm["cuda"][1],
                         "cpu_wall_s": plm["cpu"][1]}}
 
+    with phase(f"31 the device damping ladder at full width: coronary LM "
+               f"{CORONARY_LM_ITERS} and Poiseuille LM {LM_ITERS}"):
+        # the card's default solver ("auto": the ladder), held against the
+        # ladder forced on the CPU and against phase 30's host eigh
+        lad = {"card": coronary_lm("ladder", "cuda", True, solver="auto"),
+               "cpu": coronary_lm("ladder_cpu", "cpu", True,
+                                  solver="device")}
+        lad_pb, lad_wall, lad_launches, lad_evals = lad["card"]
+        host_pb = lm_co["opt-in"][0]
+        hd, hh = lad_pb.history, host_pb.history
+        others = {k: v for k, v in lad_launches.items()
+                  if k != "taylor_bundle"}
+        if (lad_pb.lm_solver != "device_ladder"
+                or lad["cpu"][0].lm_solver != "device_ladder"):
+            raise AssertionError("the ladder did not run: "
+                                 f"{lad_pb.lm_solver}, "
+                                 f"{lad['cpu'][0].lm_solver}")
+        if (lad_launches["taylor_bundle"] != 3 * lad_evals or not lad_evals
+                or any(others.values())):
+            raise AssertionError("kernel 5 not launched three times per "
+                                 f"evaluation: {lad_launches}, {lad_evals} "
+                                 "evaluations")
+        if lad["cpu"][0].history.iters != hd.iters:
+            raise AssertionError("ladder: the CPU logs at other iterations")
+        d_lad = rel_dev(lad["cpu"][0].history, hd,
+                        list(range(len(hd.iters))))
+        lm0 = len(hc.iters) - 1  # the LM round's first log point
+        d_lad_host = abs(hd.loss_global[-1] / hh.loss_global[-1] - 1.0)
+        rungs = list(lad_pb.lm_rungs)
+        later = lad_pb.lm_times[1:] or lad_pb.lm_times
+        lad_split = {k: float(np.median([t.get(k, 0.0) for t in later]))
+                     for k in ("residuals", "gram", "power", "cholesky",
+                               "solve", "candidate", "log")}
+        # per rung over iterations 2 on (the first one's include the
+        # solver libraries' first calls)
+        n_rungs = max(sum(rungs[1:]), 1)
+        per_rung = {k: sum(t.get(k, 0.0) for t in later) / n_rungs
+                    for k in ("cholesky", "solve", "candidate")}
+        lad_ms = 1e3 * float(np.median([sum(t.values()) for t in later]))
+        eigh_later = host_pb.lm_times[1:] or host_pb.lm_times
+        eigh_ms = 1e3 * float(np.median([sum(t.values())
+                                         for t in eigh_later]))
+        print(f"  coronary LM {CORONARY_LM_ITERS} on the ladder: launches "
+              f"{lad_launches} over {lad_evals} evaluations; rungs per "
+              f"iteration {rungs}; loss_global {hd.loss_global[lm0]:.6e} -> "
+              f"{hd.loss_global[-1]:.6e} (host eigh "
+              f"{hh.loss_global[-1]:.6e}, {d_lad_host:.2e} apart); every "
+              f"log against the CPU's ladder {d_lad:.2e}; wall "
+              f"{lad_wall:.2f} s (CPU {lad['cpu'][1]:.2f} s)")
+        print("  ladder iteration, median of iterations 2-"
+              f"{len(lad_pb.lm_times)}, ms: " + ", ".join(
+                  f"{k} {1e3 * v:.2f}" for k, v in lad_split.items())
+              + f"; per rung: " + ", ".join(
+                  f"{k} {1e3 * v:.2f}" for k, v in per_rung.items())
+              + f"; iteration {lad_ms:.2f} against the host eigh's "
+              f"{eigh_ms:.2f}")
+        if (hd.round_names != ["keras_Adam", "jax_BFGS", "jax_LM"]
+                or not np.isfinite(logs(hd)).all()
+                or not hd.loss_global[-1] < hd.loss_global[lm0]
+                or d_lad > HISTORY_BAR or d_lad_host > FINAL_LOSS_BAR):
+            raise AssertionError(f"coronary ladder failed: {d_lad:.2e} vs "
+                                 f"the CPU, {d_lad_host:.2e} vs host eigh")
+        # Poiseuille at phase 11's shape: the ladder against the host eigh
+        # at tpinn's own bar (tests/test_lm_fast_gram.py)
+        # every evaluation counted as in phase 30's coronary runs
+        for attr, real in real_methods.items():
+            setattr(OptimizationProblem, attr, counted(real))
+        try:
+            evaluations.clear()
+            pz_pb, pz_wall, pz_launches = lm_round("cuda", True,
+                                                   solver="auto")
+            pz_evals = len(evaluations)
+        finally:
+            for attr, real in real_methods.items():
+                setattr(OptimizationProblem, attr, real)
+        hz, h11 = pz_pb.history, lm_pb.history
+        d_pz = float(np.max(np.abs(np.array(hz.loss_global)
+                                   - h11.loss_global)
+                            / np.array(h11.loss_global)))
+        print(f"  Poiseuille LM {LM_ITERS} on the ladder: rungs "
+              f"{pz_pb.lm_rungs}; launches {pz_launches} over {pz_evals} "
+              f"evaluations; loss_global "
+              f"{hz.loss_global[-1]:.6e} (host eigh "
+              f"{h11.loss_global[-1]:.6e}), max rel deviation {d_pz:.2e}; "
+              f"wall {pz_wall:.2f} s (host eigh {lm_wall:.2f} s)")
+        if (pz_pb.lm_solver != "device_ladder" or hz.iters != h11.iters
+                or d_pz > LADDER_BAR or not pz_evals
+                or pz_launches["taylor_bundle"] != 3 * pz_evals):
+            raise AssertionError("Poiseuille ladder failed")
+        record["ladder"] = {
+            "launches": lad_launches, "evaluations": lad_evals,
+            "rungs": rungs, "split_ms": {k: 1e3 * v
+                                         for k, v in lad_split.items()},
+            "per_rung_ms": {k: 1e3 * v for k, v in per_rung.items()},
+            "ms_per_iteration": lad_ms, "eigh_ms_per_iteration": eigh_ms,
+            "dev_cpu": d_lad, "final_vs_host": d_lad_host,
+            "wall_s": lad_wall, "cpu_wall_s": lad["cpu"][1],
+            "poiseuille": {"rungs": pz_pb.lm_rungs, "dev_host": d_pz,
+                           "launches": pz_launches, "evaluations": pz_evals,
+                           "wall_s": pz_wall,
+                           "host_wall_s": lm_wall}}
+
+    with phase("32 LM resume on the card: LM 3 + resume LM 2 against LM 5, "
+               "host eigh and ladder"):
+        resume_devs = {}
+        for solver in ("host", "device"):
+            os.environ["TPINN_LM_SOLVER"] = solver
+            try:
+                with tempfile.TemporaryDirectory() as td:
+                    lm_case = lambda base, n, **kw: poiseuille_flow.main(
+                        os.path.join(td, base), adam_epochs=0,
+                        second_round="lm", epochs=n, device="cuda", **kw)
+                    part1 = lm_case("a", 3)
+                    part2 = lm_case("a", 2, resume_from=part1.folder)
+                    whole = lm_case("b", 5)
+            finally:
+                os.environ.pop("TPINN_LM_SOLVER", None)
+            h2, hw = part2.pb.history, whole.pb.history
+            same = (np.array_equal(part2.pb.last_theta64,
+                                   whole.pb.last_theta64)
+                    and logs(h2)[:, -1].tolist() == logs(hw)[:, -1].tolist())
+            d = float(np.max(np.abs(part2.pb.last_theta64
+                                    - whole.pb.last_theta64)
+                             / np.maximum(np.abs(whole.pb.last_theta64),
+                                          1e-300)))
+            resume_devs[solver] = d
+            print(f"  {solver}: rounds {h2.round_names}, loss_global "
+                  f"{h2.loss_global[-1]!r} (resumed) / "
+                  f"{hw.loss_global[-1]!r} (straight); bit-identical "
+                  f"{same}; max rel deviation of θ {d:.2e}")
+            if (h2.round_names != ["keras_Adam", "jax_LM", "jax_LM"]
+                    or part2.pb.resume_opt_state is not None
+                    or not same):
+                raise AssertionError(f"LM resume ({solver}) is not "
+                                     "bit-identical")
+        record["lm_resume"] = resume_devs
+
+    with phase(f"33 LM's chunked Jacobian: Poisson Adam 100 + LM "
+               f"{POISSON_LM_ITERS}, point residuals stripped"):
+        from tpinn_torch import optimizers
+
+        def poisson_lm(strip):
+            """Poisson as poisson.main builds it, on the card's default
+            solver; the normal equations at the LM round's θ0 from a
+            problem of their own."""
+            gen = torch.Generator().manual_seed(1)
+            model = poisson.make_model("cuda", generator=gen)
+            pb = poisson.build(model, *poisson.sample_points(gen, model),
+                               second_round="lm")
+            if strip:
+                for loss in pb.losses:
+                    loss.point_residual = None
+            minimize(pb, "keras", optimizers.Adam(learning_rate=1e-2),
+                     num_epochs=poisson.ADAM_EPOCHS)
+            probe = OptimizationProblem(model, pb.losses, [])
+            minimize(probe, "jax", "LM", num_epochs=0)
+            eqs = probe.lm_normal_eqs(probe.get_vector())
+            mb.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            minimize(pb, "jax", "LM", num_epochs=POISSON_LM_ITERS)
+            torch.cuda.synchronize()
+            return pb, eqs, time.perf_counter() - t0, dict(mb.LAUNCHES)
+
+        ch_pb, ch_eqs, ch_wall, ch_launches = poisson_lm(True)
+        fg_pb, fg_eqs, fg_wall, _ = poisson_lm(False)
+        gram_err = {name: float(np.max(np.abs(a - b)) / np.max(np.abs(b)))
+                    for name, a, b in (("JTJ", ch_eqs[1], fg_eqs[1]),
+                                       ("JTr", ch_eqs[2], fg_eqs[2]))}
+        hch, hfg = ch_pb.history, fg_pb.history
+        d_ch = rel_dev(hfg, hch, list(range(len(hch.iters))))
+        ch_ms = 1e3 * hch.wall_times[1] / len(ch_pb.lm_times)
+        fg_ms = 1e3 * hfg.wall_times[1] / len(fg_pb.lm_times)
+        ch_gram = 1e3 * float(np.median([t["gram"]
+                                         for t in ch_pb.lm_times]))
+        fg_gram = 1e3 * float(np.median([t["gram"]
+                                         for t in fg_pb.lm_times]))
+        print(f"  chunked ({ch_pb.lm_solver}, fast Gram "
+              f"{ch_pb.lm_used_fast_gram}) against the fast Gram "
+              f"({fg_pb.lm_solver}): JᵀJ / Jᵀr at θ0 "
+              f"{gram_err['JTJ']:.2e} / {gram_err['JTr']:.2e} of the "
+              f"largest; every log {d_ch:.2e}; ms per LM iteration "
+              f"{ch_ms:.2f} (Gram {ch_gram:.2f}) against {fg_ms:.2f} (Gram "
+              f"{fg_gram:.2f}); loss_global {hch.loss_global[-1]:.6e}; "
+              f"launches {ch_launches}")
+        if (ch_pb.lm_used_fast_gram or not fg_pb.lm_used_fast_gram
+                or max(gram_err.values()) > 1e-10 or d_ch > HISTORY_BAR
+                or hch.iters != hfg.iters or any(ch_launches.values())
+                or not hch.loss_global[-1] < hch.loss_global[0]):
+            raise AssertionError("chunked Jacobian failed")
+        record["chunked"] = {"gram_err": gram_err, "dev": d_ch,
+                             "ms_per_iteration": ch_ms,
+                             "fast_ms_per_iteration": fg_ms,
+                             "gram_ms": ch_gram, "fast_gram_ms": fg_gram,
+                             "wall_s": ch_wall, "fast_wall_s": fg_wall}
+
+    with phase(f"34 the float32 split carries: Poiseuille Adam 100 + dense "
+               f"BFGS {SPLIT_BFGS_ITERS} + LM {SPLIT_LM_ITERS}, "
+               "TPINN_USE_PALLAS=0"):
+        from tpinn_torch.driver import StandardNSDriver
+
+        def split_driver(device, td, **kw):
+            return StandardNSDriver(
+                poiseuille_flow.build_spec(),
+                poiseuille_flow.default_options(), base_dir=td,
+                save_results=False, seed=0, device=device, **kw)
+
+        real_eigh = np.linalg.eigh
+
+        def split_case(device, theta_bfgs=None, eigh=None):
+            """Adam 100 + dense BFGS + LM in float32 on residual losses, or,
+            given ``theta_bfgs``, the LM round alone from it; ``eigh(pb,
+            JTJ)`` takes the place of the LM loop's host eigh of JᵀJ."""
+            os.environ["TPINN_USE_PALLAS"] = "0"
+            config.set_dtype(torch.float32)
+            if eigh is not None:
+                np.linalg.eigh = lambda JTJ: eigh(pb, JTJ)
+            try:
+                with tempfile.TemporaryDirectory() as td:
+                    mb.reset_launch_counts()
+                    if theta_bfgs is None:
+                        pb = split_driver(device, td, adam_epochs=100,
+                                          second_round="jax-bfgs").train(
+                            epochs=SPLIT_BFGS_ITERS, callbacks=False)
+                        kind = pb.last_opt_state["kind"]
+                        lo_bfgs = int(torch.count_nonzero(
+                            pb.last_opt_state["carry"][1]))
+                    else:
+                        drv = split_driver(device, td, adam_epochs=0,
+                                           second_round="lm")
+                        pb = OptimizationProblem(drv.model, drv.losses,
+                                                 drv.losses_test)
+                        pb.set_vector(theta_bfgs)
+                        kind, lo_bfgs = None, None
+                    theta = pb.get_vector()
+                    minimize(pb, "jax", "LM", num_epochs=SPLIT_LM_ITERS)
+                    launches = dict(mb.LAUNCHES)
+            finally:
+                np.linalg.eigh = real_eigh
+                config.set_dtype(None)
+                os.environ.pop("TPINN_USE_PALLAS", None)
+            lo_lm = int(np.count_nonzero(pb.last_theta64 - pb.get_vector()))
+            return pb, kind, lo_bfgs, lo_lm, launches, theta
+
+        sp = {device: split_case(device) for device in ("cuda", "cpu")}
+        sp_pb, sp_kind, lo_bfgs, lo_lm, sp_launches, _ = sp["cuda"]
+        cpu_pb, theta_cpu = sp["cpu"][0], sp["cpu"][5]
+        hs, hsr = sp_pb.history, cpu_pb.history
+        d_sp = {name: rel_dev(hsr, hs, [i for i, r in enumerate(hs.rounds_idx)
+                                        if r == k])
+                for k, name in ((1, "Adam"), (2, "BFGS"), (3, "LM"))}
+        # the LM round on the card from the CPU's BFGS result: the card's
+        # own deviation, apart from the float32 rounding it inherits
+        same_pb = split_case("cuda", theta_cpu)[0]
+        i_lm = [i for i, r in enumerate(hsr.rounds_idx) if r == 3]
+        lm_logs = lambda h, sel: np.array(
+            [np.array(h.loss_global)[sel]]
+            + [np.array(e["log"])[sel] for e in h.losses.values()]
+            + [np.array(e["log"])[sel] for e in h.losses_test.values()])
+        ref_lm = lm_logs(hsr, i_lm)
+        lm_dev = lambda h, ref: float(np.max(np.abs(
+            lm_logs(h, list(range(len(h.iters)))) - ref) / np.abs(ref))) \
+            if len(h.iters) == ref.shape[1] else float("inf")
+        d_sp["LM from the CPU's θ"] = lm_dev(same_pb.history, ref_lm)
+        # the witnesses of the LM gap, each LM round from the CPU's θ: the
+        # card's loop on the CPU's JᵀJ (taken at the card's θ64), so the
+        # two sides decompose the same float32 matrix; then both sides
+        # with their own JᵀJ promoted to float64 before the eigh
+        config.set_dtype(torch.float32)
+        os.environ["TPINN_USE_PALLAS"] = "0"
+        try:
+            with tempfile.TemporaryDirectory() as td:
+                eq_drv = split_driver("cpu", td, adam_epochs=0,
+                                      second_round="lm")
+                eq_pb = OptimizationProblem(eq_drv.model, eq_drv.losses, [])
+                eq_pb.set_vector(theta_cpu)
+                minimize(eq_pb, "jax", "LM", num_epochs=0)
+        finally:
+            config.set_dtype(None)
+            os.environ.pop("TPINN_USE_PALLAS", None)
+        gram_gaps = []
+
+        def cpu_gram_eigh(pb, JTJ):
+            JTJ_cpu = eq_pb.lm_normal_eqs(pb.last_opt_state["theta64"])[1]
+            gram_gaps.append(float(np.max(np.abs(JTJ - JTJ_cpu))
+                                   / np.max(np.abs(JTJ_cpu))))
+            return real_eigh(JTJ_cpu)
+
+        eigh64 = lambda pb, JTJ: real_eigh(JTJ.astype(np.float64))
+        fed_pb = split_case("cuda", theta_cpu, eigh=cpu_gram_eigh)[0]
+        d_sp["LM on the CPU's JᵀJ"] = lm_dev(fed_pb.history, ref_lm)
+        e64 = {device: split_case(device, theta_cpu, eigh=eigh64)[0]
+               for device in ("cuda", "cpu")}
+        d_sp["LM, JᵀJ in float64 before eigh"] = lm_dev(
+            e64["cuda"].history, lm_logs(e64["cpu"].history, list(range(
+                len(e64["cpu"].history.iters)))))
+        sp_bfgs_ms = 1e3 * hs.wall_times[1] / SPLIT_BFGS_ITERS
+        sp_lm_ms = 1e3 * hs.wall_times[2] / len(sp_pb.lm_times)
+        lm_med = {k: 1e3 * float(np.median([t.get(k, 0.0)
+                                            for t in sp_pb.lm_times[1:]]))
+                  for k in ("residuals", "gram", "download", "eigh",
+                            "accept")}
+        print(f"  the card's float32 JᵀJ against the CPU's at the same θ64, "
+              f"of the largest entry: {', '.join(f'{g:.2e}' for g in gram_gaps)}"
+              f"; rungs: card {sp_pb.lm_rungs}, from the CPU's θ "
+              f"{same_pb.lm_rungs}, on the CPU's JᵀJ {fed_pb.lm_rungs}, "
+              f"CPU {cpu_pb.lm_rungs}, float64 eigh card "
+              f"{e64['cuda'].lm_rungs} / CPU {e64['cpu'].lm_rungs}")
+        print(f"  variant {sp_kind} / {sp['cpu'][1]}; lo channel nonzero in "
+              f"{lo_bfgs} of {sp_pb.get_vector().size} parameters after "
+              f"BFGS, {lo_lm} after LM; loss_global {hs.loss_global[0]:.6e}"
+              f" -> {hs.loss_global[-1]:.6e}; against the CPU, max rel "
+              f"deviation: " + ", ".join(
+                  f"{k} {v:.2e}" for k, v in d_sp.items())
+              + f"; {sp_bfgs_ms:.2f} ms per BFGS iteration, {sp_lm_ms:.2f} "
+              f"per LM iteration (" + ", ".join(
+                  f"{k} {v:.2f}" for k, v in lm_med.items())
+              + f"); rungs {sp_pb.lm_rungs}; launches {sp_launches}")
+        if (sp_kind != "bfgs_split" or sp["cpu"][1] != "bfgs_split"
+                or not lo_bfgs or not lo_lm or hs.iters != hsr.iters
+                or hs.round_names != ["keras_Adam", "jax_BFGS", "jax_LM"]
+                or max(d_sp["Adam"], d_sp["BFGS"]) > SPLIT_BAR
+                or max(d_sp["LM"], d_sp["LM from the CPU's θ"]) > SPLIT_LM_BAR
+                or d_sp["LM on the CPU's JᵀJ"] > SPLIT_LM_FED_BAR
+                or any(sp_launches.values())
+                or not np.isfinite(logs(hs)).all()
+                or not hs.loss_global[-1] < hs.loss_global[0]):
+            raise AssertionError(f"float32 split carries failed: {d_sp}")
+        record["split"] = {"devs": d_sp, "lo_bfgs": lo_bfgs, "lo_lm": lo_lm,
+                           "ms_per_bfgs_iteration": sp_bfgs_ms,
+                           "ms_per_lm_iteration": sp_lm_ms,
+                           "lm_split_ms": lm_med,
+                           "rungs": list(sp_pb.lm_rungs),
+                           "gram_gaps": gram_gaps}
+
+    with phase(f"35 the generic operators: vtaylor_bundle on the card, a sin "
+               f"net's Poiseuille Adam 100 + LM {GENERIC_LM_ITERS}"):
+        from tpinn_torch.models import MLP, Model
+        from tpinn_torch.operators import mlp_taylor_batched, vtaylor_bundle
+
+        rng = np.random.default_rng(35)
+        tp = random_params(rng, (2, 32, 32, 32, 3), torch.float64, dev)
+        tx = torch.tensor(rng.uniform(-1, 1, (1000, 2)), device=dev)
+        tanh_net = Model([2, 32, 32, 32, 3], device=dev)
+        got = vtaylor_bundle(lambda xi: tanh_net.apply(tp, xi[None, :])[0],
+                             tx, 2)
+        closed = mlp_taylor_batched(tp, tx, 2)
+        gen_err = max(float(torch.max(torch.abs(a - b))
+                            / torch.max(torch.abs(b)))
+                      for a, b in zip(got, closed))
+        print(f"  vtaylor_bundle of a 2-32-32-32-3 tanh net at 1,000 points "
+              f"against mlp_taylor_batched: {gen_err:.2e} of the largest")
+        if gen_err > 1e-12:
+            raise AssertionError("generic bundle disagrees")
+        spec = poiseuille_flow.build_spec()
+        gn = {}
+        os.environ["TPINN_LM_SOLVER"] = "device"
+        try:
+            for device in ("cuda", "cpu"):
+                mb.reset_launch_counts()
+                drv = StandardNSDriver(
+                    spec, poiseuille_flow.default_options(),
+                    base_dir=work.name, save_results=False, seed=0,
+                    second_round="lm",
+                    adam_epochs=100, device=device)
+                # the same widths with sin units, the losses built anew on
+                # it: no case takes a sin net
+                drv.model = MLP(spec.dim_in, 3, width=spec.width,
+                                depth=spec.depth, activation="sin", seed=0,
+                                input_extents=spec.extents, dtype=drv.dtype,
+                                device=drv.device)
+                drv.losses, drv.losses_test = drv._build_losses()
+                gn[device] = (drv.train(epochs=GENERIC_LM_ITERS,
+                                        callbacks=False),
+                              dict(mb.LAUNCHES))
+        finally:
+            os.environ.pop("TPINN_LM_SOLVER", None)
+        gpb, g_launches = gn["cuda"]
+        hg, hgr = gpb.history, gn["cpu"][0].history
+        d_gen = rel_dev(hgr, hg, list(range(len(hg.iters))))
+        g_adam_ms = 1e3 * hg.wall_times[0] / 100
+        g_lm_ms = 1e3 * hg.wall_times[1] / len(gpb.lm_times)
+        print(f"  sin net: rounds {hg.round_names}, fast Gram "
+              f"{gpb.lm_used_fast_gram}, {gpb.lm_solver}; loss_global "
+              f"{hg.loss_global[0]:.6e} -> {hg.loss_global[-1]:.6e}; every "
+              f"log against the CPU {d_gen:.2e}; {g_adam_ms:.2f} ms per "
+              f"Adam epoch (CPU {1e3 * hgr.wall_times[0] / 100:.2f}), "
+              f"{g_lm_ms:.2f} per LM iteration; launches {g_launches}")
+        if (hg.round_names != ["keras_Adam", "jax_LM"]
+                or gpb.model.activation_name != "sin"
+                or not gpb.lm_used_fast_gram or hg.iters != hgr.iters
+                or d_gen > HISTORY_BAR or any(g_launches.values())
+                or not hg.loss_global[-1] < hg.loss_global[0]):
+            raise AssertionError("the sin net's generic path failed")
+        record["generic"] = {"bundle_err": gen_err, "dev": d_gen,
+                             "ms_per_adam_epoch": g_adam_ms,
+                             "ms_per_lm_iteration": g_lm_ms}
+
     # launches on each path that runs the kernel, each read around its run;
     # "launches" is the count on the main path of the kernel's slice
     paths = {"4 Poiseuille Adam": launches,
@@ -2628,7 +3090,9 @@ def main():
              "26 Cavity_Steady Adam + BFGS": cs_launches,
              "29 Coronary Adam + BFGS": co_launches,
              "30 Coronary LM (opt-in)": co_lm_launches,
-             "30 Poisson LM": plm["cuda"][2]}
+             "30 Poisson LM": plm["cuda"][2],
+             "31 Coronary LM ladder (opt-in)": lad_launches,
+             "31 Poiseuille LM ladder (opt-in)": pz_launches}
 
     def kernel_row(name, key, route_src, replaces, main, row, n):
         d_ms, per_call, _ = dev_t[(name, n)]

@@ -21,10 +21,10 @@ CPU.
   History logs within 1e-8 relative over 20 iterations (PERF.md section 2;
   measured about 3e-13);
 * the Poisson case's "jax-bfgs" round against the example at the same bar;
-* the variant each package picks, and the variants that raise: float32
-  with residual losses (the split carry, not ported) and, in both packages,
-  a round under ``TPINN_USE_PALLAS=1`` (its Taylor-bundle kernel has no
-  reverse mode).
+* the variant each package picks (float32 with residual losses: the
+  split carry), and the variant that raises in both packages: a round
+  under ``TPINN_USE_PALLAS=1`` (its Taylor-bundle kernel has no reverse
+  mode).
 
 tpinn compiles each BFGS scan afresh, so its reference rounds run once per
 module (the ``poiseuille`` and ``poisson`` fixtures).
@@ -421,10 +421,16 @@ def test_poisson_bfgs_matches_example(poisson_ref):
 # ---------------------------------------------------------------------------
 
 def test_float32_residual_losses_raise_naming_the_split_item():
+    """float32 residual losses take the split carry (``bfgs_split``, as in
+    tpinn); its parity is in tests/test_torch_split.py."""
     model, pb = _tiny_problem(dtype=torch.float32)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        minimize(pb, "jax", "BFGS", num_epochs=3)
-    assert pb.history.round_names == []
+    minimize(pb, "jax", "BFGS", num_epochs=30)
+    assert pb.history.round_names == ["jax_BFGS"]
+    assert pb.last_opt_state["kind"] == "bfgs_split"
+    assert len(pb.last_opt_state["carry"]) == 8
+    assert pb.last_theta64.dtype == np.float64
+    np.testing.assert_allclose(_kernel_plus_bias(model), [2.0, 7.0],
+                               atol=1e-4)
     # a scalar loss in the mix: the plain variant runs in float32
     model, pb = _tiny_problem(dtype=torch.float32, extra=[
         Loss("gauge", lambda: torch.tensor(0.0))])

@@ -155,13 +155,14 @@ def test_driver_refuses_unported_options(tmp_path, monkeypatch):
 def test_minimize_strategies():
     assert _log_iters(25, 10) == [0, 10, 20, 25]
     assert _log_iters(20, 10) == [0, 10, 20]
-    # the float32 split carry of the dense BFGS round still raises
+    # float32 residual losses: the dense BFGS round's split carry
     model = MLP(2, 1, width=4, depth=1, dtype=torch.float32, device="cpu")
     x = torch.rand(8, 2)
     pb = OptimizationProblem(model, [LossMeanSquares(
         "fit", lambda: model(x)[:, 0] - 1.0)])
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 14"):
-        minimize(pb, "jax", "BFGS")
+    minimize(pb, "jax", "BFGS", num_epochs=5)
+    assert pb.last_opt_state["kind"] == "bfgs_split"
+    assert pb.history.loss_global[-1] < pb.history.loss_global[0]
     with pytest.raises(ValueError, match="unknown strategy"):
         minimize(None, "newton")
 

@@ -16,8 +16,9 @@ into tpinn_torch through ``StandardNSDriver.from_arrays``.
 * the opt-in forward: with TPINN_USE_PALLAS=1 every training loss at θ0,
   tpinn through its Taylor-bundle kernel in interpret mode, the port
   through kernel 5's route on the CPU, within 1e-12 relative;
-* a mis-wired point residual, and the parts of the round that are not
-  ported, raise.
+* a mis-wired or missing point residual falls back to the chunked
+  Jacobian; the device ladder, an LM resume and float32 run (their parity
+  in tests/test_torch_lm_routes.py and tests/test_torch_split.py).
 """
 
 import importlib.util
@@ -198,32 +199,45 @@ def test_opt_in_forward_matches_tpinn_kernel(shared, monkeypatch):
             assert all(torch.isfinite(g).all() for g in grad())
 
 
-def test_miswired_point_residual_raises(shared):
+def test_miswired_point_residual_raises(shared, capsys):
+    """A mis-wired point residual (stale fit targets) fails the θ0 check:
+    tpinn's message, and the round falls back to the chunked Jacobian; a
+    missing one falls back without a message, as in tpinn."""
     jex, jd, arrays, tmp = shared
     td = _port_driver(arrays, tmp)
     fit = td.losses[-1]
     fn, (x, rhs) = fit.point_residual
     fit.point_residual = (fn, (x, rhs + 1.0))  # stale fit targets
     pb = OptimizationProblem(td.model, td.losses, [])
-    with pytest.raises(NotImplementedError, match="deviates"):
-        minimize(pb, "jax", "LM", num_epochs=1)
+    minimize(pb, "jax", "LM", num_epochs=1)
+    assert "deviates from batch closures" in capsys.readouterr().out
+    assert pb.lm_used_fast_gram is False
+    assert pb.history.loss_global[-1] < pb.history.loss_global[0]
     fit.point_residual = None
-    with pytest.raises(NotImplementedError, match="no point_residual"):
-        minimize(pb, "jax", "LM", num_epochs=1)
+    pb = OptimizationProblem(td.model, td.losses, [])
+    minimize(pb, "jax", "LM", num_epochs=1)
+    assert "falling back" not in capsys.readouterr().out
+    assert pb.lm_used_fast_gram is False
 
 
 def test_unported_lm_variants_raise(shared, monkeypatch):
+    """The variants that raised before they were ported now run: the
+    device ladder, an LM resume, float32 (the split carry); a scalar loss
+    still raises, as in tpinn."""
     jex, jd, arrays, tmp = shared
     td = _port_driver(arrays, tmp)
     pb = OptimizationProblem(td.model, td.losses, [])
     monkeypatch.setenv("TPINN_LM_SOLVER", "device")
-    with pytest.raises(NotImplementedError, match="damping ladder"):
-        minimize(pb, "jax", "LM", num_epochs=1)
+    minimize(pb, "jax", "LM", num_epochs=1)
+    assert pb.lm_solver == "device_ladder"
     monkeypatch.delenv("TPINN_LM_SOLVER")
-    pb.resume_opt_state = {"kind": "lm", "theta64": pb.get_vector(),
-                           "mu": 1e-3}
-    with pytest.raises(NotImplementedError, match="resuming"):
-        minimize(pb, "jax", "LM", num_epochs=1)
+    st = {"kind": "lm", "theta64": pb.get_vector(), "mu": 1e-5}
+    pb.resume_opt_state = st
+    seen = []
+    pb.callbacks.append(lambda pb_, it, force=False: seen.append(
+        pb_.last_opt_state["mu"]))
+    minimize(pb, "jax", "LM", num_epochs=1)
+    assert pb.resume_opt_state is None and seen[0] == 1e-5
     td = _port_driver(arrays, tmp, second_round="none")
     pb = OptimizationProblem(td.model, td.losses, [])
     with pytest.raises(ValueError, match="LossMeanSquares"):
@@ -233,8 +247,9 @@ def test_unported_lm_variants_raise(shared, monkeypatch):
                            save_results=False, device="cpu",
                            dtype=torch.float32, second_round="lm")
     pb = OptimizationProblem(d32.model, d32.losses, [])
-    with pytest.raises(NotImplementedError, match="split"):
-        minimize(pb, "jax", "LM", num_epochs=1)
+    minimize(pb, "jax", "LM", num_epochs=1)
+    assert pb.last_theta64.dtype == np.float64
+    assert pb.history.loss_global[-1] < pb.history.loss_global[0]
 
 
 def _routing_problem(arrays, tmp, case):
@@ -258,27 +273,39 @@ def _routing_problem(arrays, tmp, case):
     return pb
 
 
-@pytest.mark.parametrize("name,method,case,exc,match", [
-    ("scipy", "BFGS", "float32", NotImplementedError, "item 14"),
-    ("lm", "BFGS", "float32", NotImplementedError, "item 14"),
-    ("jax-bfgss", "BFGS", None, ValueError, "unknown second_round"),
-    ("lm", "BFGS", "no_point_residual", NotImplementedError, "item 8"),
-    ("gn", "BFGS", "lm_resume", NotImplementedError, "item 8"),
-    ("scipy-parityy", "BFGS", None, ValueError, "unknown second_round"),
+@pytest.mark.parametrize("name,method,case,expect", [
+    ("scipy", "BFGS", "float32", "jax_BFGS"),
+    ("lm", "BFGS", "float32", "jax_LM"),
+    ("jax-bfgss", "BFGS", None, ValueError),
+    ("lm", "BFGS", "no_point_residual", "jax_LM"),
+    ("gn", "BFGS", "lm_resume", "jax_LM"),
+    ("scipy-parityy", "BFGS", None, ValueError),
 ])
-def test_second_round_routing_table(shared, name, method, case, exc, match):
-    """What the routing table still refuses: an unknown name (at the
-    driver's construction too), and, at the round, the float32 split
-    carries (item 14), an LM round on a loss without point residual and
-    an LM resume (item 8)."""
+def test_second_round_routing_table(shared, name, method, case, expect):
+    """What the routing table refuses: an unknown name, at the driver's
+    construction too; and what it runs now that they are ported: the
+    float32 split carries (BFGS ``bfgs_split``, LM's), an LM round on a
+    loss without point residual (the chunked Jacobian) and an LM resume,
+    each logged under its round's name."""
     jex, jd, arrays, tmp = shared
-    if exc is ValueError:
-        with pytest.raises(exc, match=match):
-            _port_driver(arrays, tmp, second_round=name, scipy_method=method)
     pb = _routing_problem(arrays, tmp, case)
-    with pytest.raises(exc, match=match):
-        run_second_round(pb, name, 3, scipy_method=method)
-    assert pb.history.round_names == []
+    if expect is ValueError:
+        with pytest.raises(ValueError, match="unknown second_round"):
+            _port_driver(arrays, tmp, second_round=name, scipy_method=method)
+        with pytest.raises(ValueError, match="unknown second_round"):
+            run_second_round(pb, name, 3, scipy_method=method)
+        assert pb.history.round_names == []
+        return
+    run_second_round(pb, name, 3, scipy_method=method)
+    assert pb.history.round_names == [expect]
+    assert np.isfinite(pb.history.loss_global).all()
+    if case == "float32":
+        kind = pb.last_opt_state["kind"]
+        assert kind == ("bfgs_split" if expect == "jax_BFGS" else "lm")
+    if case == "no_point_residual":
+        assert pb.lm_used_fast_gram is False
+    if case == "lm_resume":
+        assert pb.resume_opt_state is None
 
 
 _SECOND_ROUND_NAMES = {"lm": "jax_LM", "jax-lm": "jax_LM", "gn": "jax_LM",

@@ -148,3 +148,25 @@ def test_forward_keeps_the_graph_of_a_watched_batch():
     x = torch.rand(5, 2, dtype=torch.float64, requires_grad=True)
     (g,) = torch.autograd.grad(tm(x)[:, 0].sum(), x)
     assert g.shape == (5, 2) and torch.isfinite(g).all()
+
+
+@pytest.mark.parametrize("name", ["tanh", "relu", "gelu", "sin", "linear"])
+def test_activations_match_tpinn(name):
+    """Every activation equals tpinn's in float64 at 1e-15 (gelu is
+    jax.nn.gelu's default, the tanh approximation), and a model of it
+    gives tpinn's forward at 1e-13."""
+    from tpinn.models import _ACTIVATIONS as JAX_ACTIVATIONS
+    from tpinn_torch.models import _ACTIVATIONS
+
+    x = np.linspace(-3.0, 3.0, 13)
+    ref = np.asarray(JAX_ACTIVATIONS[name](jnp.asarray(x)))
+    got = _ACTIVATIONS[name](torch.as_tensor(x)).numpy()
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-15)
+    jm = JaxMLP(2, 3, width=16, depth=3, seed=4, activation=name,
+                dtype=jnp.float64)
+    tm = MLP(2, 3, width=16, depth=3, activation=name, device="cpu")
+    tm.set_params(params_from_numpy(_jax_params_np(jm)))
+    xb = np.random.default_rng(5).uniform(-2, 2, (65, 2))
+    np.testing.assert_allclose(tm(xb).detach().numpy(),
+                               np.asarray(jm(jnp.asarray(xb))), rtol=0,
+                               atol=1e-13)

@@ -222,9 +222,11 @@ def test_scipy_round_logs_like_tpinn():
     with torch.no_grad():
         final = float(torch.mean((model(x) - y) ** 2))
     assert h.losses["fit"]["log"][-1] == final < h.losses["fit"]["log"][0]
-    # LM on a loss without point residual: the chunked Jacobian waits
-    with pytest.raises(NotImplementedError, match="ROADMAP.*item 8"):
-        minimize(pb, "jax", "LM")
+    # LM on a loss without point residual: the chunked Jacobian
+    minimize(pb, "jax", "LM", num_epochs=3)
+    assert pb.lm_used_fast_gram is False
+    assert h.round_names == ["scipy_L-BFGS-B", "jax_LM"]
+    assert h.loss_global[-1] <= final
 
 
 def test_vector_order_is_tpinn_ravel_order():

@@ -865,10 +865,12 @@ def _bundle_launch(params, x: torch.Tensor, widths: List[int], dim: int):
 
 
 _NO_REVERSE = (
-    "reverse mode through the kernel route (mlp_taylor_bundle, selected by "
-    "TPINN_USE_PALLAS) is not supported, as in the JAX package, whose "
-    "Taylor-bundle kernel has no VJP; unset TPINN_USE_PALLAS (or set it to "
-    "0) to differentiate these losses")
+    "kernel 5 (mlp_taylor_bundle, selected by TPINN_USE_PALLAS) is forward "
+    "only: a gradient, a Jacobian-vector product or a Jacobian through it "
+    "(an Adam or BFGS step, the float32 split carries, LM's chunked "
+    "Jacobian) is not supported, as in the JAX package, whose Taylor-bundle "
+    "kernel has neither a VJP nor a JVP; unset TPINN_USE_PALLAS (or set it "
+    "to 0) to differentiate these losses")
 
 
 class _TaylorBundle(torch.autograd.Function):

@@ -15,6 +15,7 @@ read them, the JAX package's files included.
 
 from __future__ import annotations
 
+import contextlib
 import json
 from typing import List, Optional, Sequence
 
@@ -27,7 +28,8 @@ from tpinn_torch import config
 _ACTIVATIONS = {
     "tanh": torch.tanh,
     "relu": torch.relu,
-    "gelu": nn.functional.gelu,
+    # jax.nn.gelu's default, the tanh approximation
+    "gelu": lambda x: nn.functional.gelu(x, approximate="tanh"),
     "sin": torch.sin,
     "linear": lambda x: x,
 }
@@ -86,6 +88,10 @@ class Model(nn.Module):
         )
         if generator is None:
             generator = torch.Generator().manual_seed(seed)
+        # parameters bound by ``bind`` (None: the module's own), and a count
+        # of binds that keys the residual memos
+        self._bound = None
+        self.bind_count = 0
         self.kernels = nn.ParameterList()
         self.biases = nn.ParameterList()
         for p in self.init(generator):
@@ -119,9 +125,30 @@ class Model(nn.Module):
 
     @property
     def params(self) -> List[dict]:
-        """The live parameters in the JAX package's list-of-dicts layout."""
+        """The live parameters in the JAX package's list-of-dicts layout,
+        or, inside ``bind``, the bound ones."""
+        if self._bound is not None:
+            return self._bound
         return [{"kernel": k, "bias": b}
                 for k, b in zip(self.kernels, self.biases)]
+
+    @contextlib.contextmanager
+    def bind(self, params: Sequence[dict]):
+        """Let ``params`` (same layout, e.g. views of a flat vector that
+        requires grad) stand for the model's parameters inside the block:
+        every closure that reads ``model.params`` (``model(x)``, the
+        residual bundles, the tape losses) is then a function of them, so
+        a loss can be differentiated at a given θ (the JAX package's
+        ``pb.variables.bind``).  The module's own parameters are not
+        touched."""
+        prev = self._bound
+        self._bound = list(params)
+        self.bind_count += 1
+        try:
+            yield
+        finally:
+            self._bound = prev
+            self.bind_count += 1
 
     @property
     def variables(self) -> VariablesHandle:

@@ -1,5 +1,14 @@
-"""Differential operators: the closed-form batched Taylor propagation
-through a tanh MLP, and the tape-style surface of nisaba's ``tens_style``.
+"""Differential operators: the per-point functional core on
+``torch.func``, the closed-form batched Taylor propagation through a tanh
+MLP, and the tape-style surface of nisaba's ``tens_style``.
+
+The functional core (``gradient_fn``, ``jacobian_fn``, ``divergence_fn``,
+``laplacian_fn``, ``hessian_diag_fn``, ``taylor_bundle`` and their batched
+``v*`` forms) takes a per-point function ``f(xi)`` of any model.  PyTorch
+has no Taylor-mode ``jet``; the second directional derivative
+d²f(x + t·e_k)/dt² = e_kᵀ H e_k, the JAX package's jet ``d2`` along
+(e_k, 0), is a jvp of a jvp along e_k, and the inner jvp's primal and
+tangent give the value and the first derivative on the way.
 
 The closed-form propagation is the plain PyTorch twin of the CUDA residual
 kernels' stream math (tpinn_torch/kernels/csrc/taylor_mlp.cuh): for every
@@ -19,7 +28,112 @@ for any model, by reverse-mode autograd.
 
 from __future__ import annotations
 
+from typing import Callable
+
 import torch
+from torch import func as tfunc
+
+# ---------------------------------------------------------------------------
+# Per-point functional core
+# ---------------------------------------------------------------------------
+
+
+def _scalarize(f: Callable) -> Callable:
+    """f with its output reshaped to a true scalar ((1,) outputs)."""
+    return lambda xi: f(xi).reshape(())
+
+
+def _basis(xi: torch.Tensor) -> torch.Tensor:
+    return torch.eye(xi.shape[-1], dtype=xi.dtype, device=xi.device)
+
+
+def _jet2(f: Callable, xi: torch.Tensor, e: torch.Tensor):
+    """(f(xi), df·e, eᵀ d²f e) along the direction e: a jvp of a jvp."""
+    inner = lambda x: tfunc.jvp(f, (x,), (e,))
+    (value, d1), (_, d2) = tfunc.jvp(inner, (xi,), (e,))
+    return value, d1, d2
+
+
+def gradient_fn(f: Callable) -> Callable:
+    """∇f for a per-point scalar function: returns ``xi -> (d,)``."""
+    return tfunc.grad(_scalarize(f))
+
+
+def jacobian_fn(f: Callable) -> Callable:
+    """Jacobian of a per-point vector function: returns ``xi -> (m, d)``."""
+    return tfunc.jacfwd(f)
+
+
+def divergence_fn(f: Callable, dim: int) -> Callable:
+    """∇·f for a per-point vector field ``xi -> (m,)`` with m >= dim, by
+    ``dim`` jvps (no Jacobian materialized)."""
+
+    def div(xi):
+        basis = _basis(xi)
+        return sum(tfunc.jvp(f, (xi,), (basis[k],))[1][k]
+                   for k in range(dim))
+
+    return div
+
+
+def hessian_diag_fn(f: Callable, dim: int) -> Callable:
+    """Diagonal of the Hessian of a per-point scalar function:
+    ``xi -> (dim,)``."""
+    fs = _scalarize(f)
+
+    def hdiag(xi):
+        basis = _basis(xi)
+        return torch.stack([_jet2(fs, xi, basis[k])[2] for k in range(dim)])
+
+    return hdiag
+
+
+def laplacian_fn(f: Callable, dim: int) -> Callable:
+    """Δf for a per-point scalar function: the sum of the ``dim`` second
+    directional derivatives along the axes."""
+    fs = _scalarize(f)
+
+    def lap(xi):
+        basis = _basis(xi)
+        total = torch.zeros((), dtype=xi.dtype, device=xi.device)
+        for k in range(dim):
+            total = total + _jet2(fs, xi, basis[k])[2]
+        return total
+
+    return lap
+
+
+def taylor_bundle(f: Callable, dim: int) -> Callable:
+    """(value (m,), jac (m, dim), hdiag (m, dim)) of a per-point vector
+    field ``f: xi (d,) -> (m,)``, one nested jvp per input column."""
+
+    def bundle(xi):
+        basis = _basis(xi)
+        value, jac_cols, hdiag_cols = None, [], []
+        for k in range(dim):
+            value, d1, d2 = _jet2(f, xi, basis[k])
+            jac_cols.append(d1)
+            hdiag_cols.append(d2)
+        return value, torch.stack(jac_cols, dim=-1), torch.stack(
+            hdiag_cols, dim=-1)
+
+    return bundle
+
+
+def vgrad(f: Callable, xs: torch.Tensor) -> torch.Tensor:
+    return tfunc.vmap(gradient_fn(f))(xs)
+
+
+def vlaplacian(f: Callable, xs: torch.Tensor, dim: int) -> torch.Tensor:
+    return tfunc.vmap(laplacian_fn(f, dim))(xs)
+
+
+def vdivergence(f: Callable, xs: torch.Tensor, dim: int) -> torch.Tensor:
+    return tfunc.vmap(divergence_fn(f, dim))(xs)
+
+
+def vtaylor_bundle(f: Callable, xs: torch.Tensor, dim: int):
+    return tfunc.vmap(taylor_bundle(f, dim))(xs)
 
 
 def mlp_taylor_batched(params, x: torch.Tensor, dim: int,

@@ -24,8 +24,11 @@
   line-search trial.
 * ``minimize(pb, "jax", "LM", num_epochs)`` runs Levenberg–Marquardt on the
   stacked residual vector (round ``jax_LM``): the normal equations from the
-  per-point Gram on the device, one host eigendecomposition per iteration,
-  and damped steps accepted by a paired-difference test.
+  per-point Gram on the device (else from the chunked Jacobian), then damped
+  steps accepted by a paired-difference test, through one host
+  eigendecomposition per iteration or, on the card, a damping ladder of
+  Cholesky solves on the device.  In float32 both BFGS (on residual losses)
+  and LM carry the parameters as a split pair.
 
 Second-order rounds run with IEEE float32 products (no TF32).
 """
@@ -154,11 +157,6 @@ def _minimize_scipy(pb: OptimizationProblem, method: str, num_epochs: int):
 # Dense BFGS on the device (round jax_BFGS)
 # ---------------------------------------------------------------------------
 
-# ROADMAP.md port queue 1 item of the float32 split-parameter carries (the
-# BFGS variant and the LM round's)
-_SPLIT_ITEM = 14
-
-
 def _wolfe_zoom_linesearch(f_1d, f0, g0, max_iters=30, c1=1e-4, c2=0.9):
     """Strong-Wolfe line search on φ(a) = f(x + a·d), also accepting the
     Hager–Zhang approximate-Wolfe conditions
@@ -237,6 +235,24 @@ def _bfgs_update_H(H, s, y, first, failed):
     return H_new, (first & ~safe) | failed
 
 
+def _two_sum(a: torch.Tensor, b: torch.Tensor):
+    """(s, err) with s + err == a + b exactly (Knuth's TwoSum, branch
+    free): exact in IEEE arithmetic with each operation rounded on its own,
+    as eager PyTorch runs them (one kernel per operation, no reassociation,
+    no fused multiply-add in a sum)."""
+    s = a + b
+    bb = s - a
+    err = (a - (s - bb)) + (b - bb)
+    return s, err
+
+
+def _df_add(hi: torch.Tensor, lo: torch.Tensor, delta: torch.Tensor):
+    """(hi, lo) + delta as a renormalized two-float pair, error free."""
+    s, err = _two_sum(hi, delta)
+    lo2 = lo + err
+    return _two_sum(s, lo2)
+
+
 def _all_finite(*ts) -> torch.Tensor:
     out = torch.isfinite(ts[0]).all()
     for t in ts[1:]:
@@ -267,7 +283,7 @@ def _adopt_carry(st, x0: torch.Tensor, n_leaves: int):
 
 def _minimize_jax_bfgs(pb: OptimizationProblem, num_epochs: int,
                        timed: bool = False):
-    """Dense BFGS on the device, in one of two variants, as the JAX
+    """Dense BFGS on the device, in one of three variants, as the JAX
     package picks them:
 
     * ``bfgs_plain`` when some training loss gives no residual vector (a
@@ -277,9 +293,16 @@ def _minimize_jax_bfgs(pb: OptimizationProblem, num_epochs: int,
       float64: each trial evaluates the stacked residuals R and 2·JᵀR, and
       the line search runs on the loss change
       Δφ(a) = Σ (R(x+a·d) − R(x))·(R(x+a·d) + R(x)), resolved at the scale
-      of Δφ rather than of the loss.
+      of Δφ rather than of the loss;
+    * ``bfgs_split`` for the same losses in float32: the parameters are an
+      unevaluated two-float pair (hi, lo), moved by the error-free
+      ``_df_add``, so a step below ulp(θ) still moves them; each trial
+      evaluates r(hi), dr = J(hi)·lo and 2·J(hi)ᵀ(r + dr)
+      (``pb.residuals_split``) and differences each channel before adding
+      them: Δφ = ((r − r₀) + (dr − dr₀))·((r + r₀) + (dr + dr₀)).  The H
+      update takes s = (hi₁ − hi) + (lo₁ − lo); ``pb.last_theta64`` gets
+      hi + lo in float64.
 
-    The float32 split-parameter variant (``bfgs_split``) is not ported.
     Per iteration: d = −H·g (steepest descent when d is not a descent
     direction), the line search, the value and gradient at the new point; a
     step with a non-finite loss, point or gradient is rejected and counts
@@ -298,10 +321,7 @@ def _minimize_jax_bfgs(pb: OptimizationProblem, num_epochs: int,
     if not residual_losses:
         kind = "bfgs_plain"
     elif dtype == torch.float32:
-        raise NotImplementedError(
-            "minimize(pb, 'jax', 'BFGS') in float32 with residual losses "
-            "takes the split-parameter carry (bfgs_split), which is not "
-            f"ported yet (ROADMAP.md, port queue 1, item {_SPLIT_ITEM})")
+        kind = "bfgs_split"
     else:
         kind = "bfgs_paired"
 
@@ -325,6 +345,10 @@ def _minimize_jax_bfgs(pb: OptimizationProblem, num_epochs: int,
     def res_grad(x):
         counts["evaluations"] += 1
         return pb.residuals_and_grad(x)
+
+    def eval_ch(hi, lo):
+        counts["evaluations"] += 1
+        return pb.residuals_split(hi, lo)
 
     def direction(H, g):
         d = -(H @ g)
@@ -391,8 +415,39 @@ def _minimize_jax_bfgs(pb: OptimizationProblem, num_epochs: int,
         lap("update")
         return x_new, f_new, r_new, g_new, H_new, first_new
 
-    step = step_plain if kind == "bfgs_plain" else step_paired
-    n_leaves = 5 if kind == "bfgs_plain" else 6
+    def step_split(carry):
+        hi, lo, f, r, dr, g, H, first = carry
+        d, dg = direction(H, g)
+
+        def d_1d(a):
+            hia, loa = _df_add(hi, lo, a * d)
+            ra, dra, ga_vec = eval_ch(hia, loa)
+            # channel by channel: the r-channel cancels bit for bit while
+            # hi is unchanged, and the dr-channel resolves sub-ulp steps
+            dphi = torch.dot((ra - r) + (dra - dr), (ra + r) + (dra + dr))
+            return dphi, torch.dot(ga_vec, d)
+
+        alpha = search(d_1d, torch.zeros_like(f), dg)
+        hi_n, lo_n = _df_add(hi, lo, alpha * d)
+        r_n, dr_n, g_n = eval_ch(hi_n, lo_n)
+        f_n = f + torch.dot((r_n - r) + (dr_n - dr), (r_n + r) + (dr_n + dr))
+        finite = _all_finite(f_n, hi_n, g_n, r_n, dr_n)
+        hi_n = torch.where(finite, hi_n, hi)
+        lo_n = torch.where(finite, lo_n, lo)
+        f_n = torch.where(finite, f_n, f)
+        g_n = torch.where(finite, g_n, g)
+        r_n = torch.where(finite, r_n, r)
+        dr_n = torch.where(finite, dr_n, dr)
+        failed = (alpha == 0.0) | ~finite
+        lap("evaluations")
+        s = (hi_n - hi) + (lo_n - lo)
+        H_new, first_new = _bfgs_update_H(H, s, g_n - g, first, failed)
+        lap("update")
+        return hi_n, lo_n, f_n, r_n, dr_n, g_n, H_new, first_new
+
+    step, n_leaves = {"bfgs_plain": (step_plain, 5),
+                      "bfgs_paired": (step_paired, 6),
+                      "bfgs_split": (step_split, 8)}[kind]
     carry = None
     st = _consume_resume_state(pb, kind)
     if st is not None:
@@ -403,6 +458,10 @@ def _minimize_jax_bfgs(pb: OptimizationProblem, num_epochs: int,
         if kind == "bfgs_plain":
             f0, g0 = vg(x0)
             carry = (x0, f0, g0, eye, first)
+        elif kind == "bfgs_split":
+            lo0 = torch.zeros_like(x0)
+            r0, dr0, g0 = eval_ch(x0, lo0)
+            carry = (x0, lo0, torch.dot(r0, r0), r0, dr0, g0, eye, first)
         else:
             r0, g0 = res_grad(x0)
             carry = (x0, torch.dot(r0, r0), r0, g0, eye, first)
@@ -427,6 +486,10 @@ def _minimize_jax_bfgs(pb: OptimizationProblem, num_epochs: int,
         done = target
         pb.last_opt_state = {"kind": kind, "carry": carry}
         _log_point(pb, done, carry[0])
+    if kind == "bfgs_split":
+        # the two-float carry; the parameters below are its hi channel
+        pb.last_theta64 = (carry[0].cpu().numpy().astype(np.float64)
+                           + carry[1].cpu().numpy().astype(np.float64))
     pb.set_flat(carry[0])
     pb.history.add_wall_time(time.perf_counter() - t0)
     pb.fire_callbacks(pb.history.iters[-1], force=True)
@@ -622,24 +685,20 @@ def _minimize_jax_lbfgs(pb: OptimizationProblem, num_epochs: int,
 # Levenberg–Marquardt (round jax_LM)
 # ---------------------------------------------------------------------------
 
-_NOT_PORTED = "is not ported yet (ROADMAP.md, port queue 1, item 8)"
-
-
 def _collect_point_entries(pb: OptimizationProblem, r_batch: torch.Tensor):
     """Per-point residual entries [(fn, args, scale)] for the fast Gram,
     from every training loss's ``point_residual``.  The stacked per-point
     evaluation is held against the batch closures ``r_batch`` at the same
-    parameters (rtol 1e-4), so a mis-wired ``point_residual`` (wrong rhs,
-    stale points) cannot make the round optimize another objective.  Where
-    the JAX package falls back to its chunked forward-mode Jacobian, the
-    port raises: that Jacobian is not ported."""
+    parameters (rtol 1e-4, atol 1e-5 of the largest), so a mis-wired
+    ``point_residual`` (wrong rhs, stale points) cannot make the round
+    optimize another objective.  None, with the JAX package's message,
+    when some loss has none or the check fails: the round then takes the
+    chunked Jacobian."""
     entries = []
     for loss in pb.losses:
         pr = getattr(loss, "point_residual", None)
         if pr is None:
-            raise NotImplementedError(
-                f"loss {loss.name!r} has no point_residual; the LM round's "
-                f"chunked forward-mode Jacobian {_NOT_PORTED}")
+            return None
         fn, args = pr
         n_rows = int(args[0].shape[0])
         scale = float(np.sqrt(loss.weight / n_rows) / loss.normalization)
@@ -654,16 +713,16 @@ def _collect_point_entries(pb: OptimizationProblem, r_batch: torch.Tensor):
     r_pts = torch.cat(parts).cpu().numpy()
     r_b = r_batch.cpu().numpy()
     if r_pts.shape != r_b.shape:
-        raise NotImplementedError(
-            f"point_residual stack shape {r_pts.shape} != batch "
-            f"{r_b.shape}; the chunked forward-mode Jacobian {_NOT_PORTED}")
+        print(f"  LM: point_residual stack shape {r_pts.shape} != batch "
+              f"{r_b.shape}; falling back to chunked jacobian", flush=True)
+        return None
     atol = 1e-5 * float(np.max(np.abs(r_b)) + 1e-30)
     if not np.allclose(r_pts, r_b, rtol=1e-4, atol=atol):
         worst = float(np.max(np.abs(r_pts - r_b)))
-        raise NotImplementedError(
-            f"point_residual stack deviates from the batch closures (max "
-            f"|Δ| {worst:.3e}); the chunked forward-mode Jacobian "
-            f"{_NOT_PORTED}")
+        print(f"  LM: point_residual stack deviates from batch closures "
+              f"(max |Δ| {worst:.3e}); falling back to chunked jacobian",
+              flush=True)
+        return None
     return entries
 
 
@@ -672,50 +731,89 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+_TINY64 = float(np.finfo(np.float64).tiny)
+# power iterations for the ladder's largest eigenvalue of JᵀJ
+_POWER_ITERS = 24
+
+
 def _minimize_lm(pb: OptimizationProblem, num_epochs: int):
     """Levenberg–Marquardt: damped Gauss–Newton on the stacked residuals
     (``pb.residuals_at``), whose squared norm is the global loss.
 
-    Per iteration: the residuals at θ; JᵀJ and Jᵀr from the per-point Gram
-    (row i of J is the parameter gradient of residual component i, which
-    depends on one point only: ``torch.func.vmap`` of ``grad`` of each
-    loss's ``point_residual``, then GᵀG and Gᵀr on the device); JᵀJ to the
-    host and one ``numpy.linalg.eigh``, after which the damped step
-    δ(λ) = −V (Λ + λ)⁻¹ Vᵀ Jᵀr costs O(P²) for any λ; candidates accepted
-    when ||r₁||² − ||r₀||², taken as (r₁ − r₀)·(r₁ + r₀), is negative.
-    Damping λ = μ·max(w) follows Marquardt: μ/3 on accept, ×10 on reject;
-    μ above 1e12 with no acceptable step ends the round (at the floor).
+    Per iteration: the residuals at θ, then JᵀJ and Jᵀr, then a ladder of
+    damped steps.  JᵀJ and Jᵀr come from the per-point Gram (row i of J is
+    the parameter gradient of residual component i, which depends on one
+    point only: ``torch.func.vmap`` of ``grad`` of each loss's
+    ``point_residual``, then GᵀG and Gᵀr on the device) when every loss has
+    a ``point_residual`` that agrees with its batch closure at θ0
+    (``pb.lm_used_fast_gram``); else from the chunked Jacobian, J built in
+    blocks of ``problem.JAC_CHUNK`` parameter tangents through the losses
+    themselves (``pb.residuals_jacobian``).  A candidate is accepted when
+    ||r₁||² − ||r₀||², taken as (r₁ − r₀)·(r₁ + r₀), is finite and
+    negative; the damping λ = μ·w_max follows Marquardt: μ/3 (floor 1e-14)
+    on accept, ×10 on reject, and μ above 1e12 with no acceptable step ends
+    the round (at the floor).
 
-    Float64 only, host eigendecomposition only: the float32 split carry,
-    the device damping ladder (``TPINN_LM_SOLVER=device``), the chunked
-    forward-mode Jacobian and resuming a checkpointed LM state are not
-    ported and raise.  ``pb.lm_times`` gets, per iteration, the seconds
-    spent in each part (residuals, gram, download, eigh, accept, log);
-    ``pb.lm_normal_eqs`` the normal-equations map."""
+    The ladder takes one of two solvers (``TPINN_LM_SOLVER``; ``pb.lm_solver``):
+
+    * "host_eigh": JᵀJ to the host and one ``numpy.linalg.eigh``, after
+      which a rung δ(λ) = −V (Λ + λ)⁻¹ Vᵀ Jᵀr costs O(P²) for any λ;
+    * "device_ladder": everything on the device: w_max by 24 power
+      iterations from Jᵀr/‖Jᵀr‖, then per rung one Cholesky factorization
+      of JᵀJ + λI (a matrix that is not positive definite is a rejected
+      rung), its solve and the candidate's residuals; the host reads one
+      flag tensor per rung.
+
+    ``device`` and ``host`` force one; ``auto`` (the default) takes the
+    device ladder when the parameters lie on the card in float64 and the
+    host loop elsewhere: the JAX package's rule of the device on its
+    accelerator and host LAPACK on the CPU, the card being the port's
+    accelerator.
+
+    In float32 θ lives in host float64 as a split carry (hi, lo), hi its
+    float32 rounding: a step below ulp(θ) still changes the evaluation,
+    which is r(hi) and dr = J(hi)·lo in two channels, the accept test
+    differencing each channel before adding them.  Jᵀr is taken at hi and
+    corrected by JᵀJ·lo in host float64 (the chunked route keeps Jᵀr and
+    Jᵀdr apart and adds them there).  The split carry always takes the
+    host loop.
+
+    A checkpointed state of kind "lm" is adopted when its θ, rounded to
+    the working dtype, equals the parameters bit for bit (μ clamped to
+    [1e-14, 1e8]); a malformed one cold-starts.  ``pb.last_opt_state``
+    holds θ (float64) and μ from before the iteration-0 log point on;
+    ``pb.last_theta64`` the final carry.  ``pb.lm_times`` gets, per
+    iteration, the seconds of each part (host loop: residuals, gram,
+    download, eigh, accept; device ladder: residuals, gram, power,
+    cholesky, solve, candidate; and log), the device synchronised at each
+    boundary; ``pb.lm_rungs`` the rungs of each iteration;
+    ``pb.lm_normal_eqs`` the host loop's normal-equations map."""
     params0 = pb.params
     dtype, device = params0[0].dtype, params0[0].device
-    if dtype != torch.float64:
-        raise NotImplementedError(
-            f"the LM round runs in float64; the float32 split-parameter "
-            f"carry is not ported yet (ROADMAP.md, port queue 1, item "
-            f"{_SPLIT_ITEM})")
-    if os.environ.get("TPINN_LM_SOLVER", "auto") == "device":
-        raise NotImplementedError(
-            f"TPINN_LM_SOLVER=device: the on-device damping ladder "
-            f"{_NOT_PORTED}")
-    st = getattr(pb, "resume_opt_state", None)
-    if isinstance(st, dict) and str(st.get("kind")) == "lm":
-        raise NotImplementedError(f"resuming a checkpointed LM state "
-                                  f"{_NOT_PORTED}")
     for loss in pb.losses:
         if type(loss) is not LossMeanSquares:
             raise ValueError(
                 "minimize(pb, 'jax', 'LM') requires every training loss to "
                 "expose a residual vector (LossMeanSquares); "
                 f"{loss.name!r} is {type(loss).__name__}")
+    split = dtype == torch.float32
 
-    theta64 = pb.get_vector()
-    entries = _collect_point_entries(pb, pb.residuals_at(theta64))
+    theta0_64 = pb.get_vector()
+    entries = _collect_point_entries(pb, pb.residuals_at(theta0_64))
+    pb.lm_used_fast_gram = entries is not None
+    solver_env = os.environ.get("TPINN_LM_SOLVER", "auto")
+    use_ladder = (not split) and (
+        solver_env == "device"
+        or (solver_env == "auto" and device.type == "cuda"))
+    pb.lm_solver = "device_ladder" if use_ladder else "host_eigh"
+
+    def to_dev(theta64: np.ndarray) -> torch.Tensor:
+        return torch.as_tensor(theta64, dtype=dtype, device=device)
+
+    def split64(theta64: np.ndarray):
+        hi = theta64.astype(np.float32)
+        lo = (theta64 - hi.astype(np.float64)).astype(np.float32)
+        return to_dev(hi), to_dev(lo)
 
     def gram_fast(theta: torch.Tensor):
         """JᵀJ and Jᵀr from the rows of J, one loss at a time stacked into
@@ -736,6 +834,7 @@ def _minimize_lm(pb: OptimizationProblem, num_epochs: int):
     # seconds of each part of every iteration, the device synchronised at
     # each boundary so that its work is charged to the part that queued it
     pb.lm_times = []
+    pb.lm_rungs = []
     tick, part = time.perf_counter(), {}
 
     def lap(key):
@@ -745,63 +844,163 @@ def _minimize_lm(pb: OptimizationProblem, num_epochs: int):
         part[key] = part.get(key, 0.0) + now - tick
         tick = now
 
-    def normal_eqs(theta64):
-        """(r at θ on the device, JᵀJ, Jᵀr as float64 host arrays)."""
-        r = pb.residuals_at(theta64)
+    def eval_res(theta64: np.ndarray):
+        """(r, None) at θ, or (r(hi), J(hi)·lo) under the split carry."""
+        if split:
+            return pb.residuals_jvp(*split64(theta64))
+        return pb.residuals_at(theta64), None
+
+    def normal_eqs(theta64: np.ndarray):
+        """(residuals on the device, JᵀJ as a host array of the working
+        dtype, Jᵀr in host float64) at θ; the residuals are a tensor, or
+        the pair (r(hi), J(hi)·lo) under the split carry."""
+        rv = eval_res(theta64)
         lap("residuals")
-        theta = torch.as_tensor(theta64, dtype=dtype, device=device)
-        JTJ, JTr = gram_fast(theta)
+        hi = to_dev(theta64)
+        JTr_lo = None
+        if entries is not None:
+            JTJ, JTr = gram_fast(hi)
+        else:
+            _, Jt = pb.residuals_jacobian(hi)
+            JTJ, JTr = Jt @ Jt.T, Jt @ rv[0]
+            if split:
+                JTr_lo = Jt @ rv[1]
         lap("gram")
-        out = (r, JTJ.cpu().numpy(), JTr.cpu().numpy().astype(np.float64))
+        JTJ = JTJ.cpu().numpy()
+        JTr = JTr.cpu().numpy().astype(np.float64)
+        if split:
+            # Jᵀr's lo part in host float64: Jᵀdr kept apart on the
+            # chunked route, JᵀJ·lo on the fast Gram's
+            JTr = JTr + (
+                JTr_lo.cpu().numpy().astype(np.float64) if JTr_lo is not None
+                else JTJ.astype(np.float64)
+                @ (theta64 - hi.cpu().numpy().astype(np.float64)))
         lap("download")
-        return out
+        return (rv if split else rv[0]), JTJ, JTr
 
     pb.lm_normal_eqs = normal_eqs
 
-    def pair_diff(r_new, r_cur) -> float:
-        return float(torch.dot(r_new - r_cur, r_new + r_cur))
+    def pair_diff(new, cur) -> float:
+        (r1, d1), (r0, d0) = new, cur
+        if d1 is None:
+            return float(torch.dot(r1 - r0, r1 + r0))
+        return float(torch.dot((r1 - r0) + (d1 - d0), (r1 + r0) + (d1 + d0)))
+
+    def ladder(theta, mu: float, JTJ, JTr, r_cur):
+        """One iteration's damping ladder on the device: (θ, μ, accepted),
+        the model left at θ."""
+        n = JTJ.shape[0]
+        nrm = torch.linalg.norm(JTr)
+        v = torch.where(nrm > 0, JTr / (nrm + _TINY64), torch.full(
+            (n,), 1.0 / math.sqrt(max(n, 1)), dtype=dtype, device=device))
+        for _ in range(_POWER_ITERS):
+            v2 = JTJ @ v
+            v = v2 / (torch.linalg.norm(v2) + _TINY64)
+        w_max = v @ (JTJ @ v)
+        eye = torch.eye(n, dtype=dtype, device=device)
+        mu_t = torch.tensor(mu, dtype=dtype, device=device)
+        done = not bool(torch.isfinite(w_max) & (w_max > 0))
+        lap("power")
+        accepted, rungs = False, 0
+        while not done:
+            lam = mu_t * w_max + _TINY64
+            L, info = torch.linalg.cholesky_ex(JTJ + lam * eye,
+                                               check_errors=False)
+            lap("cholesky")
+            delta = -torch.cholesky_solve(JTr[:, None], L)[:, 0]
+            lap("solve")
+            th = theta + delta
+            r = pb.residuals_flat(th)
+            df = torch.dot(r - r_cur, r + r_cur)
+            ok = ((info == 0) & torch.isfinite(delta).all()
+                  & torch.isfinite(df) & (df < 0))
+            mu_rej = mu_t * 10.0
+            mu_t = torch.where(ok, torch.clamp(mu_t / 3.0, min=1e-14), mu_rej)
+            theta = torch.where(ok, th, theta)
+            accepted, done = torch.stack((ok, ok | (mu_rej > 1e12))).tolist()
+            rungs += 1
+            lap("candidate")
+        pb.set_flat(theta)
+        pb.lm_rungs.append(rungs)
+        return theta, float(mu_t), accepted
 
     pb.history.start_round("jax_LM")
     pb.last_round_name = "jax_LM"
     t0 = time.perf_counter()
+    theta64 = theta0_64
     mu = 1e-3  # relative damping: λ = mu·max(w)
+    st = _consume_resume_state(pb, "lm")
+    if st is not None:
+        try:
+            saved = np.asarray(st["theta64"], np.float64)
+            work = np.float32 if split else np.float64
+            if (saved.shape == theta64.shape and np.array_equal(
+                    saved.astype(work), theta64.astype(work))):
+                theta64 = saved
+                mu = min(max(float(st["mu"]), 1e-14), 1e8)
+        except (KeyError, TypeError, ValueError):
+            pass  # a malformed state: cold start
+    # published before the iteration-0 log point: a checkpoint written there
+    # must keep a carry just adopted from a resume
     pb.last_opt_state = {"kind": "lm", "theta64": theta64.copy(),
                          "mu": float(mu)}
-    _log_point(pb, 0, theta64)
+    _log_point(pb, 0, theta0_64)
     log_targets = set(_log_iters(num_epochs, LOG_STRIDE)[1:])
+    theta_dev = to_dev(theta64) if use_ladder else None
     tick = time.perf_counter()
     for it in range(1, num_epochs + 1):
         part = {}
         pb.lm_times.append(part)
-        r_cur, JTJ, JTr = normal_eqs(theta64)
-        w, V = np.linalg.eigh(JTJ)
-        lap("eigh")
-        w = np.maximum(w, 0.0)
-        w_max = float(w[-1]) if w.size else 0.0
-        converged = not np.isfinite(w_max) or w_max <= 0
-        accepted = False
-        c = V.T @ JTr
-        while not converged:
-            lam = mu * w_max + np.finfo(np.float64).tiny
-            delta64 = -(V @ (c / (w + lam)))
-            df = pair_diff(pb.residuals_at(theta64 + delta64), r_cur)
-            if np.isfinite(df) and df < 0:
-                theta64 = theta64 + delta64
-                mu = max(mu / 3.0, 1e-14)
-                accepted = True
-                break
-            mu *= 10.0
-            if mu > 1e12:  # no damping yields progress: at the floor
-                converged = True
-        lap("accept")
+        if use_ladder:
+            if entries is not None:
+                r_cur = pb.residuals_flat(theta_dev)
+                lap("residuals")
+                JTJ, JTr = gram_fast(theta_dev)
+            else:
+                # the residuals come with the Jacobian's linearization
+                r_cur, Jt = pb.residuals_jacobian(theta_dev)
+                JTJ, JTr = Jt @ Jt.T, Jt @ r_cur
+            lap("gram")
+            theta_dev, mu, accepted = ladder(theta_dev, mu, JTJ, JTr, r_cur)
+            converged = not accepted  # saturated, or an invalid w_max
+            theta64 = theta_dev.cpu().numpy().astype(np.float64)
+            logged = theta_dev
+        else:
+            r_cur, JTJ, JTr = normal_eqs(theta64)
+            cur = r_cur if split else (r_cur, None)
+            w, V = np.linalg.eigh(JTJ)
+            lap("eigh")
+            w = np.maximum(w, 0.0)
+            w_max = float(w[-1]) if w.size else 0.0
+            converged = not np.isfinite(w_max) or w_max <= 0
+            accepted = False
+            c = V.T @ JTr
+            rungs = 0
+            while not converged:
+                lam = mu * w_max + _TINY64
+                delta64 = -(V @ (c / (w + lam)))
+                df = pair_diff(eval_res(theta64 + delta64), cur)
+                rungs += 1
+                if np.isfinite(df) and df < 0:
+                    theta64 = theta64 + delta64
+                    mu = max(mu / 3.0, 1e-14)
+                    accepted = True
+                    break
+                mu *= 10.0
+                if mu > 1e12:  # no damping yields progress: at the floor
+                    converged = True
+            pb.lm_rungs.append(rungs)
+            lap("accept")
+            logged = theta64
         pb.last_opt_state = {"kind": "lm", "theta64": theta64.copy(),
                              "mu": float(mu)}
         if it in log_targets or converged or not accepted:
-            _log_point(pb, it, theta64)
+            _log_point(pb, it, logged)
             lap("log")
         if converged:
             break
 
+    pb.last_theta64 = theta64.copy()
     pb.set_vector(theta64)
     pb.history.add_wall_time(time.perf_counter() - t0)
     pb.fire_callbacks(pb.history.iters[-1], force=True)

@@ -18,8 +18,10 @@ Two evaluators feed the PDE losses:
   :class:`FusedPoissonObjective` is its Poisson member (−Δu = f);
 * :class:`ResidualBundle` + the ``*_residual`` row functions — residual
   vectors from the closed-form Taylor streams (or, under the
-  ``TPINN_USE_PALLAS`` opt-in, from kernel 5), for models the fused kernels
-  do not take, for the boundary (Neumann) losses, and for the unfused PDE
+  ``TPINN_USE_PALLAS`` opt-in, from kernel 5; for a model other than a
+  plain tanh MLP from the generic per-point operators), for models the
+  fused kernels do not take, for the boundary (Neumann) losses, and for
+  the unfused PDE
   losses the Levenberg–Marquardt round needs;
 * the ``*_point_residual`` builders — the same rows at one point with
   explicit params, for the LM round's per-point Gram.
@@ -37,7 +39,7 @@ import torch
 from tpinn_torch.geometry import Normalization
 from tpinn_torch.kernels import mlp_bundle
 from tpinn_torch.models import Model
-from tpinn_torch.operators import mlp_taylor_batched
+from tpinn_torch.operators import mlp_taylor_batched, vtaylor_bundle
 
 
 @dataclasses.dataclass(frozen=True)
@@ -54,14 +56,17 @@ class NSPhysics:
         return self.time != 0.0
 
 
-def _params_key(params) -> tuple:
-    """Identity of a parameter state: the optimizer updates tensors in
-    place, so object identity never changes but every in-place update bumps
-    the tensor's version counter.  Grad mode is part of the key, so a value
-    computed under no_grad is never handed to a training step."""
-    flat = [t for p in params for t in (p["kernel"], p["bias"])]
+def _params_key(model: Model) -> tuple:
+    """Identity of the model's parameter state: the optimizer updates
+    tensors in place, so object identity never changes but every in-place
+    update bumps the tensor's version counter.  Grad mode is part of the
+    key, so a value computed under no_grad is never handed to a training
+    step, and so is the model's bind count, so parameters bound by
+    ``Model.bind`` never meet a memo of other tensors that once had their
+    ids."""
+    flat = [t for p in model.params for t in (p["kernel"], p["bias"])]
     return (tuple((id(t), t._version) for t in flat),
-            torch.is_grad_enabled())
+            torch.is_grad_enabled(), model.bind_count)
 
 
 _OFF_VALUES = ("0", "false", "False")
@@ -77,25 +82,25 @@ def use_pallas_default() -> bool:
 
 class ResidualBundle:
     """Per-batch (value, jacobian, hessian-diag) of the (u, v, p) field of
-    a plain tanh MLP.
+    the model.
 
-    By default the closed-form Taylor propagation computes it
-    (``mlp_taylor_batched``).  With ``use_pallas`` on (the argument, else
-    the ``TPINN_USE_PALLAS`` variable; off by default) it comes from
-    :func:`tpinn_torch.kernels.mlp_bundle.mlp_taylor_bundle`: kernel 5 on a
-    CUDA batch, its plain version on the CPU, forward only in both, as in
-    the JAX package.  The residual closures of one bundle share one
-    computation per parameter state (version-keyed memo).
+    For a plain tanh MLP the closed-form Taylor propagation computes it
+    (``mlp_taylor_batched``) by default.  With ``use_pallas`` on (the
+    argument, else the ``TPINN_USE_PALLAS`` variable; off by default) it
+    comes from :func:`tpinn_torch.kernels.mlp_bundle.mlp_taylor_bundle`:
+    kernel 5 on a CUDA batch, its plain version on the CPU, forward only in
+    both, as in the JAX package.  Any other model (another activation, an
+    overridden ``apply``) takes the generic per-point path,
+    :func:`tpinn_torch.operators.vtaylor_bundle` of ``model.apply``, as the
+    JAX package's jet path; kernel 5 computes tanh, so the opt-in does not
+    route such a model to it.  The residual closures of one bundle share
+    one computation per parameter state (version-keyed memo).
 
     ``spatial_cols`` maps spatial axis -> input column: (0, 1) steady,
     (1, 2) unsteady where column 0 is time."""
 
     def __init__(self, model: Model, x: torch.Tensor, unsteady: bool = False,
                  use_pallas: Optional[bool] = None):
-        if not model.is_plain_tanh():
-            raise NotImplementedError(
-                "ResidualBundle is ported for plain tanh MLPs only (the "
-                "jet path for other models is not ported)")
         self.model = model
         self.x = x
         self.unsteady = unsteady
@@ -103,17 +108,18 @@ class ResidualBundle:
         self.spatial_cols = (1, 2) if unsteady else (0, 1)
         self.use_pallas = (use_pallas_default() if use_pallas is None
                            else bool(use_pallas))
+        self._tri = taylor_tri_fn(model, self.dim_in)
         self._memo = None
 
     def compute(self):
         params = self.model.params
-        key = _params_key(params)
+        key = _params_key(self.model)
         if self._memo is None or self._memo[0] != key:
-            if self.use_pallas:
+            if self.use_pallas and self.model.is_plain_tanh():
                 out = mlp_bundle.mlp_taylor_bundle(params, self.x,
                                                    dim=self.dim_in)
             else:
-                out = mlp_taylor_batched(params, self.x, self.dim_in)
+                out = self._tri(params, self.x)
             self._memo = (key, out)
         return self._memo[1]
 
@@ -213,7 +219,7 @@ class FusedNSResidualMSEs:
 
     def mses(self):
         params = self.model.params
-        key = _params_key(params)
+        key = _params_key(self.model)
         if self._memo is None or self._memo[0] != key:
             m = mlp_bundle.ns_residual_mse(
                 params, self.x, self.physics, self.norm,
@@ -255,7 +261,7 @@ class FusedNSWeightedObjective:
 
     def _compute(self):
         params = self.model.params
-        key = _params_key(params)
+        key = _params_key(self.model)
         if self._memo is not None and self._memo[0] == key:
             return self._memo[1]
         if torch.is_grad_enabled():
@@ -307,7 +313,7 @@ class FusedPoissonObjective:
 
     def _compute(self):
         params = self.model.params
-        key = _params_key(params)
+        key = _params_key(self.model)
         if self._memo is not None and self._memo[0] == key:
             return self._memo[1]
         if torch.is_grad_enabled():
@@ -382,12 +388,13 @@ def use_fused_pde_losses(model: Model, spec_unsteady: bool,
 
 
 def taylor_tri_fn(model: Model, dim_in: int):
-    """(params, x) -> (value, jac, hdiag) with explicit params (any batch),
-    by the closed-form propagation (plain tanh MLPs)."""
-    if not model.is_plain_tanh():
-        raise NotImplementedError(
-            "point residuals are ported for plain tanh MLPs only")
-    return lambda params, x: mlp_taylor_batched(params, x, dim_in)
+    """(params, x) -> (value, jac, hdiag) with explicit params (any batch):
+    the closed-form propagation for a plain tanh MLP, else the generic
+    per-point path (``vtaylor_bundle``)."""
+    if model.is_plain_tanh():
+        return lambda params, x: mlp_taylor_batched(params, x, dim_in)
+    return lambda params, x: vtaylor_bundle(
+        lambda xi: model.apply(params, xi[None, :])[0], x, dim_in)
 
 
 def pde_point_residuals(model: Model, physics: NSPhysics,

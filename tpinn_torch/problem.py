@@ -21,6 +21,10 @@ from tpinn_torch.history import History
 from tpinn_torch.losses import Loss
 from tpinn_torch.models import Model, VariablesHandle
 
+# parameter tangents per block of the chunked Jacobian (the JAX package's
+# LM chunk)
+JAC_CHUNK = 256
+
 
 class OptimizationProblem:
     def __init__(
@@ -173,6 +177,64 @@ class OptimizationProblem:
             raise ValueError(f"vector of {theta.shape[-1]} values for {off} "
                              "parameters")
         return out
+
+    @torch.no_grad()
+    def residuals_flat(self, theta: torch.Tensor) -> torch.Tensor:
+        """``residuals_at`` at a flat device tensor (no host copy)."""
+        self.set_flat(theta)
+        return self._residual_vector()
+
+    def _linearize(self, theta: torch.Tensor):
+        """The stacked residuals R at ``theta`` with the model bound to
+        views of a leaf copy ``th`` of it (``Model.bind``), and Jᵀu for a
+        zero u that requires grad, both graphs kept.  Jᵀc is then the
+        gradient of R in th along c, and J·v the gradient of Jᵀu in u along
+        v (a double backward: reverse mode only, so it runs through the
+        tape's own ``autograd.grad`` where ``torch.func.jvp`` cannot).
+        The module's parameters are not touched.  Returns (R, th, Jᵀu, u)."""
+        th = theta.detach().requires_grad_(True)
+        with torch.enable_grad(), self.model.bind(self.unravel(th)):
+            R = self._residual_vector()
+            u = torch.zeros_like(R, requires_grad=True)
+            (JTu,) = torch.autograd.grad(R, th, u, create_graph=True)
+        return R, th, JTu, u
+
+    def residuals_jvp(self, theta: torch.Tensor, tangent: torch.Tensor):
+        """(R, J·v) at ``theta`` on the device, v a flat tangent: the
+        JAX package's ``jax.jvp(residuals, (theta,), (v,))``."""
+        R, _, JTu, u = self._linearize(theta)
+        (Jv,) = torch.autograd.grad(JTu, u, tangent)
+        return R.detach(), Jv
+
+    def residuals_split(self, hi: torch.Tensor, lo: torch.Tensor):
+        """(r, dr, g) at the two-float point (hi, lo): r = R(hi), the
+        correction channel dr = J(hi)·lo kept apart from it, and
+        g = 2·J(hi)ᵀ(r + dr), the gradient of ||R||² at hi + lo to first
+        order in lo."""
+        R, th, JTu, u = self._linearize(hi)
+        (dr,) = torch.autograd.grad(JTu, u, lo, retain_graph=True)
+        r = R.detach()
+        (g,) = torch.autograd.grad(R, th, 2.0 * (r + dr))
+        return r, dr, g
+
+    def residuals_jacobian(self, theta: torch.Tensor,
+                           chunk: int = JAC_CHUNK):
+        """(R, Jᵀ) at ``theta`` on the device, Jᵀ (P, N) built from blocks
+        of ``chunk`` parameter tangents: one batched double backward per
+        block (``is_grads_batched``) over one linearization."""
+        R, _, JTu, u = self._linearize(theta)
+        n = theta.shape[0]
+        blocks = []
+        for start in range(0, n, chunk):
+            rows = torch.arange(start, min(start + chunk, n),
+                                device=theta.device)
+            V = torch.zeros((rows.shape[0], n), dtype=theta.dtype,
+                            device=theta.device)
+            V[torch.arange(rows.shape[0], device=theta.device), rows] = 1.0
+            (Jv,) = torch.autograd.grad(JTu, u, V, retain_graph=True,
+                                        is_grads_batched=True)
+            blocks.append(Jv)
+        return R.detach(), torch.cat(blocks)
 
     @torch.no_grad()
     def residuals_at(self, vec: np.ndarray) -> torch.Tensor:
