@@ -233,7 +233,22 @@ exits non-zero:
    value, then a 2-32-32-32-3 sin net on Poiseuille's reference points
    through the generic ``ResidualBundle`` (the Poiseuille driver's model
    replaced and its losses built anew; Adam 100 + LM 5, the ladder forced
-   on both sides) card against CPU at 1e-8.
+   on both sides) card against CPU at 1e-8;
+36. the sharded slice: Poiseuille at its reference options on a point mesh
+   of 3 ranks (processes, gloo, all on the one card; no batch divides 3;
+   where the host has several cards, one rank per card over NCCL instead),
+   through ``tpinn_torch.sharding`` and the driver's ``mesh``: (a) Adam
+   100 + the default "scipy" dense BFGS 20, kernels 1/2 on every rank's
+   shard; (b) Adam 100 + L-BFGS 20; (c) LM 5 on the device ladder under
+   TPINN_USE_PALLAS=1, kernel 5 on every rank's shard, the fast Gram; each
+   held against the same run unsharded on the card in this process
+   (every log at 1e-8), θ byte-identical on every rank after every round,
+   the kernels' launches per rank read around each round; the sharded
+   objectives on the card (1,000 rows, and 2 rows that leave one rank
+   padding alone) against the unsharded kernels; kernels 1/2 over no
+   valid row (zeros, no launch); (a) again on 1 rank over NCCL; the ms per
+   Adam epoch and per second-round iteration of each (ranks sharing one
+   card: not a scaling measurement).
 
 The line before the last is the kernels' JSON record (each kernel's
 launches on every path that runs it, ``launches`` being its slice's main
@@ -331,6 +346,11 @@ SPLIT_LM_BAR = 1e-2
 SPLIT_LM_FED_BAR = 1e-3
 # the sin net's LM round on the generic bundles (phase 35)
 GENERIC_LM_ITERS = 5
+# the sharded slice (phase 36): ranks sharing the card, the rounds' lengths
+SHARD_RANKS = 3
+SHARD_ADAM = 100
+SHARD_ITERS = 20
+SHARD_LM_ITERS = 5
 
 
 def phase(name):
@@ -647,6 +667,184 @@ def host_ms(fn, reps=50, warmup=3):
         times.append(1e3 * (time.perf_counter() - t0))
     times.sort()
     return times[len(times) // 2]
+
+
+def sharded_phase(work_dir, dev):
+    """Phase 36: the sharded slice on a point mesh of ranks against the
+    same runs in one process: SHARD_RANKS ranks sharing the one device
+    over gloo (NCCL refuses two ranks on one GPU), or, where the host has
+    several cards, one rank per card over NCCL.  Returns (the kernels'
+    launches summed over the ranks and the paths, the record)."""
+    import numpy as np
+    import torch
+
+    from tpinn_torch import sharded_runs, sharding
+    from tpinn_torch.history import History
+    from tpinn_torch.kernels import mlp_bundle as mb
+
+    f64 = torch.float64
+    case = "tpinn_torch.cases.poiseuille_flow"
+    drv = {"device": dev.type, "save_results": False, "seed": 0,
+           "adam_epochs": SHARD_ADAM, "base_dir": work_dir}
+    jobs = {
+        "a": {"case": case, "driver": dict(drv, second_round="scipy"),
+              "rounds": [["keras", SHARD_ADAM], ["scipy", SHARD_ITERS]]},
+        "b": {"case": case, "driver": dict(drv, second_round="jax"),
+              "rounds": [["keras", SHARD_ADAM], ["jax", SHARD_ITERS]]},
+        "c": {"case": case, "driver": dict(drv, second_round="lm"),
+              "rounds": [["keras", 0], ["lm", SHARD_LM_ITERS]],
+              "env": {"TPINN_USE_PALLAS": "1"}},
+    }
+    # the sharded objectives on the card: the main path's batch and a batch
+    # shorter than the mesh (the last rank holds padding alone)
+    params, x, physics, norm = problem(2, 1000, 36, f64, dev)
+    x2 = x[:2]
+    cot = (0.3, 1.7, -0.4)
+    jobs["objectives"] = {
+        "kind": "objectives", "device": dev.type, "norm": norm,
+        "physics": {"conv": physics.conv, "visc": physics.visc},
+        "params": [{k: p[k].cpu().numpy() for k in ("kernel", "bias")}
+                   for p in params],
+        "batches": {"1000": (x.cpu().numpy(), 1000),
+                    "2": (x2.cpu().numpy(), 2)},
+        "weights": (10.0, 1.0, 1.0), "cotangent": cot}
+    cards = torch.cuda.device_count() if dev.type == "cuda" else 0
+    n_ranks, backend = (cards, "nccl") if cards > 1 else (SHARD_RANKS, "gloo")
+    out = {"ranks": n_ranks, "backend": backend}
+    t0 = time.perf_counter()
+    mb.reset_launch_counts()
+    sharding.spawn(sharded_runs.run_jobs, n_ranks,
+                   args=(list(jobs.values()), work_dir), backend=backend,
+                   device=dev.type, timeout=60.0, threads=2, deadline=600.0)
+    ranks = sharded_runs.load(work_dir, n_ranks)
+    out["spawn_s"] = time.perf_counter() - t0
+    if any(mb.LAUNCHES.values()):
+        raise AssertionError("the parent launched a kernel while ranks ran")
+    res = {name: [r[i] for r in ranks] for i, name in enumerate(jobs)}
+    where = (f"one per card of {cards}" if cards > 1
+             else f"sharing {dev}, not a scaling measurement")
+    print(f"  {n_ranks} ranks ({backend}, {where}): "
+          f"{out['spawn_s']:.2f} s, processes and builds included")
+
+    # the sharded objectives against the unsharded kernels on the card
+    for name, (xb, n_true) in (("1000", (x, 1000)), ("2", (x2, 2))):
+        leaves, fl = leaves_of(params)
+        loss, mses = mb.ns_residual_weighted_obj(leaves, xb, physics, norm,
+                                                 (10.0, 1.0, 1.0))
+        g = torch.autograd.grad(loss, fl)
+        leaves, fl = leaves_of(params)
+        m = mb.ns_residual_mse(leaves, xb, physics, norm)
+        gm = torch.autograd.grad(
+            torch.dot(m, torch.tensor(cot, dtype=f64, device=dev)), fl)
+        got = [r[f"batch {name}"] for r in res["objectives"]]
+        for r in got[1:]:
+            same = all(np.array_equal(r[k], got[0][k])
+                       for k in ("loss", "mses", "mse"))
+            same &= all(np.array_equal(a, b) for a, b in zip(
+                r["grads"] + r["mse_grads"],
+                got[0]["grads"] + got[0]["mse_grads"]))
+            if not same:
+                raise AssertionError(f"sharded objective {name}: ranks differ")
+        t = lambda a: torch.as_tensor(a, device=dev)
+        e = max(check_close(f"sharded {name} loss", t(got[0]["loss"]),
+                            loss.detach(), 1e-11),
+                check_close(f"sharded {name} mses", t(got[0]["mses"]), mses,
+                            1e-11),
+                check_close(f"sharded {name} mse", t(got[0]["mse"]),
+                            m.detach(), 1e-11))
+        eg = max(check_close(f"sharded {name} grad", t(a), b, 1e-9, 1e-12)
+                 for a, b in zip(got[0]["grads"] + got[0]["mse_grads"],
+                                 list(g) + list(gm)))
+        print(f"  sharded objectives at n = {name} (valid rows by rank "
+              f"{[r['n_valid'] for r in got]}): loss / MSEs max abs "
+              f"{e:.2e}, dW/db {eg:.2e}, the same bits on every rank")
+        out[f"objectives_{name}"] = {"loss_err": e, "grad_err": eg}
+    # kernels 1/2 over no valid row: zeros and no launch
+    before = dict(mb.LAUNCHES)
+    dp, m0, l0 = mb.ns_residual_bwd(params, x, physics, norm,
+                                    torch.tensor((10.0, 1.0, 1.0), dtype=f64,
+                                                 device=dev), 0, 1000,
+                                    with_loss=True)
+    m1 = mb.ns_residual_fwd(params, x, physics, norm, 0, 1000)
+    if (mb.LAUNCHES != before or m0.any() or m1.any() or l0.any()
+            or any(t_.any() for t_ in flat(dp))):
+        raise AssertionError("kernels 1/2 over no valid row")
+    print("  kernels 1/2 at n_valid = 0: zeros, no launch")
+
+    # the runs against one process, unsharded, on the card
+    totals = {k: 0 for k in mb.LAUNCHES}
+    refs = {}
+    for name in ("a", "b", "c"):
+        got = res[name]
+        if any(r["thetas"] != got[0]["thetas"] for r in got[1:]):
+            raise AssertionError(f"({name}): θ differs across ranks")
+        ref = refs[name] = sharded_runs.run_job(0, None, jobs[name])
+        hs, hr = History.from_dict(got[0]["history"]), \
+            History.from_dict(ref["history"])
+        dev_all = rel_dev(hr, hs, list(range(len(hr.iters))))
+        per_rank = [[{k: v for k, v in l.items() if v} for l in r["launches"]]
+                    for r in got]
+        ms = [[1e3 * s_ / max(n, 1) for s_, (_, n) in
+               zip(r["seconds"], jobs[name]["rounds"])] for r in got]
+        ms_ref = [1e3 * s_ / max(n, 1) for s_, (_, n) in
+                  zip(ref["seconds"], jobs[name]["rounds"])]
+        for r in got:
+            for l in r["launches"]:
+                for k, v in l.items():
+                    totals[k] += v
+        if name == "c":
+            # the median LM iteration (each rank a cold process: the round's
+            # wall above carries its first calls)
+            lm_ms = [1e3 * float(np.median([sum(t_.values()) for t_ in
+                                            r["lm_times"]]))
+                     for r in got + [ref]]
+            print(f"  (c) median ms per LM iteration by rank "
+                  f"{[round(v, 2) for v in lm_ms[:-1]]} (one process "
+                  f"{lm_ms[-1]:.2f})")
+        print(f"  ({name}) {hs.round_names}: every log against one process "
+              f"{dev_all:.2e}; θ the same bytes on every rank after each "
+              f"round; launches by rank and round {per_rank}; ms per "
+              f"epoch / iteration by rank ({where}) "
+              f"{[[round(v, 2) for v in m_] for m_ in ms]}"
+              f" (one process {[round(v, 2) for v in ms_ref]})")
+        want = ({"taylor_bundle"} if name == "c"
+                else {"ns_residual_bwd", "ns_residual_fwd"})
+        launched = {k for r in got for l in r["launches"] for k, v in
+                    l.items() if v}
+        ok = (hs.iters == hr.iters and hs.round_names == hr.round_names
+              and dev_all <= HISTORY_BAR and launched == want
+              and all(r["launches"][-1][k] > 0 for r in got for k in want)
+              and hs.loss_global[-1] < hs.loss_global[0])
+        if name == "c":
+            ok &= all(r["lm_used_fast_gram"] and r["lm_solver"] ==
+                      "device_ladder" for r in got)
+        if not ok:
+            raise AssertionError(f"sharded run ({name}) failed its checks")
+        out[name] = {"dev": dev_all, "ms_by_rank": ms, "ms_one_process": ms_ref,
+                     "launches_by_rank": per_rank}
+        if name == "c":
+            out[name]["lm_median_ms"] = lm_ms
+
+    # the main path on one rank over NCCL
+    t0 = time.perf_counter()
+    nccl_dir = os.path.join(work_dir, "nccl")
+    os.makedirs(nccl_dir, exist_ok=True)
+    sharding.spawn(sharded_runs.run_jobs, 1, args=([jobs["a"]], nccl_dir),
+                   backend="nccl" if dev.type == "cuda" else "gloo",
+                   device=dev.type, timeout=60.0, threads=2, deadline=300.0)
+    one = sharded_runs.load(nccl_dir, 1)[0][0]
+    hs = History.from_dict(one["history"])
+    hr = History.from_dict(refs["a"]["history"])
+    d1 = rel_dev(hr, hs, list(range(len(hr.iters))))
+    ms1 = [1e3 * s_ / n for s_, (_, n) in zip(one["seconds"],
+                                              jobs["a"]["rounds"])]
+    print(f"  (a) on 1 rank over NCCL: every log against one process "
+          f"{d1:.2e}; ms per epoch / iteration {[round(v, 2) for v in ms1]}; "
+          f"{time.perf_counter() - t0:.2f} s with its process")
+    if d1 > HISTORY_BAR or hs.iters != hr.iters:
+        raise AssertionError("the NCCL rank disagrees")
+    out["nccl"] = {"dev": d1, "ms": ms1}
+    return totals, out
 
 
 def main():
@@ -3075,6 +3273,12 @@ def main():
                              "ms_per_adam_epoch": g_adam_ms,
                              "ms_per_lm_iteration": g_lm_ms}
 
+    with phase(f"36 the sharded slice: Poiseuille on a point mesh of ranks, "
+               f"Adam {SHARD_ADAM} + dense BFGS "
+               f"{SHARD_ITERS}, Adam {SHARD_ADAM} + L-BFGS {SHARD_ITERS}, "
+               f"LM {SHARD_LM_ITERS} (opt-in), against one process"):
+        shard_launches, record["sharded"] = sharded_phase(work.name, dev)
+
     # launches on each path that runs the kernel, each read around its run;
     # "launches" is the count on the main path of the kernel's slice
     paths = {"4 Poiseuille Adam": launches,
@@ -3092,7 +3296,8 @@ def main():
              "30 Coronary LM (opt-in)": co_lm_launches,
              "30 Poisson LM": plm["cuda"][2],
              "31 Coronary LM ladder (opt-in)": lad_launches,
-             "31 Poiseuille LM ladder (opt-in)": pz_launches}
+             "31 Poiseuille LM ladder (opt-in)": pz_launches,
+             "36 sharded": shard_launches}
 
     def kernel_row(name, key, route_src, replaces, main, row, n):
         d_ms, per_call, _ = dev_t[(name, n)]

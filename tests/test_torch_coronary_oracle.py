@@ -283,3 +283,24 @@ def test_generator_finds_its_cache_in_either_layout(tmp_path, monkeypatch,
                                        f"{tcoro.STEADY_STEM}.npz"]
     np.testing.assert_array_equal(np.load(os.path.join(out, "bpoints.npy")),
                                   jcoro.generate_bpoints(MSH))
+
+
+def test_boundary_nodes_equal_tpinn(meshes, coarse_msh):
+    """``fem.boundary_nodes`` on the committed mesh, the coarse parametric
+    one and a 4 × 3 square split into triangles equals tpinn's."""
+    from tpinn.oracles import fem as jfem
+    from tpinn_torch.oracles import fem as tfem
+
+    ii, jj = np.meshgrid(np.arange(4), np.arange(3), indexing="ij")
+    v = (ii * 4 + jj).ravel()
+    squares = np.stack([v, v + 4, v + 5, v + 1], axis=1)
+    square_tris = np.concatenate([squares[:, [0, 1, 2]],
+                                  squares[:, [0, 2, 3]]])
+    for tris in (meshes[1].triangles, coarse_msh[2], square_tris):
+        got = tfem.boundary_nodes(np.asarray(tris))
+        ref = jfem.boundary_nodes(np.asarray(tris))
+        assert got.dtype == ref.dtype
+        np.testing.assert_array_equal(got, ref)
+    # the 5 × 4 nodes of the square: all but the six interior ones
+    assert tfem.boundary_nodes(square_tris).tolist() == sorted(
+        set(range(20)) - {5, 6, 9, 10, 13, 14})

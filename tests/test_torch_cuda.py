@@ -8,7 +8,8 @@ short round of each slice on the card against the CPU; the dense BFGS
 round on the card (against the CPU, one kernel-1 launch per evaluation,
 bit-identical repeats, and an exact resume from its run folder); the
 L-BFGS round on the card (against the CPU, a bit-identical repeat, one
-kernel-1 launch per line-search trial); the roofline probe's kernels
+kernel-1 launch per line-search trial); kernels 1/2 over no valid row;
+the roofline probe's kernels
 against their plain versions and their SASS; the cavity oracle on the card
 against the CPU; an unsteady round through kernels 1/2 at d_in 3 against
 the CPU.
@@ -94,6 +95,24 @@ def test_kernels_match_plain_on_card(cuda, d_in, n, n_valid):
                zip(got, [t for p in dp2 for t in (p["kernel"], p["bias"])]))
     m_fwd = mb.ns_residual_fwd(params, x, phys, norm, n_valid, n_valid)
     torch.testing.assert_close(m_fwd, ref_m, rtol=1e-11, atol=0)
+
+
+@pytest.mark.cuda
+def test_kernels_over_no_valid_row(cuda):
+    """A shard of padding alone (n_valid 0): kernels 1 and 2 return zero
+    sums and gradients without a launch, as their plain versions do."""
+    params, x, phys, norm = _case(2, 8, 9, cuda)
+    gbar = torch.tensor(W3, dtype=torch.float64, device=cuda)
+    before = dict(mb.LAUNCHES)
+    dp, mses, loss = mb.ns_residual_bwd(params, x, phys, norm, gbar, 0, 70,
+                                        with_loss=True)
+    m_fwd = mb.ns_residual_fwd(params, x, phys, norm, 0, 70)
+    assert mb.LAUNCHES == before
+    ref_l, ref_m, ref_g = _plain_grads(params, x, phys, norm, gbar, 0, 70)
+    assert float(loss) == float(ref_l) == 0.0
+    assert not mses.any() and not m_fwd.any() and not ref_m.any()
+    assert all(not t.any() for p in dp for t in p.values())
+    assert all(not g.any() for g in ref_g)
 
 
 @pytest.mark.cuda

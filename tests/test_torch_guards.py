@@ -91,6 +91,31 @@ def test_port_file_has_no_forbidden_import(path):
     assert "torch/extension.h" not in text
 
 
+# the modules that spawned ranks import: each must load no JAX, optax,
+# h5py, matplotlib, pandas or tpinn (a spawned process imports the module of
+# its function afresh)
+_RANK_MODULES = ("tpinn_torch.sharding", "tpinn_torch.sharded_runs")
+
+
+@pytest.mark.parametrize("module", _RANK_MODULES)
+def test_rank_modules_load_no_reference_stack(module):
+    code = (
+        f"import sys, importlib; importlib.import_module({module!r})\n"
+        f"bad = [m for m in sys.modules if m.split('.')[0] in "
+        f"{_FORBIDDEN_MODULES!r}]\n"
+        "import torch.distributed as dist\n"
+        "print(bad, dist.is_initialized())\n"
+        "sys.exit(1 if bad or dist.is_initialized() else 0)\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=_REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+    path = os.path.join(_REPO, *module.split(".")) + ".py"
+    assert os.path.relpath(path, _REPO) in [os.path.relpath(p, _REPO)
+                                            for p in _port_files()]
+
+
 def test_build_directory_is_gitignored():
     from tpinn_torch.kernels import build
 
@@ -173,10 +198,10 @@ def test_nisaba_namespace():
 
 def test_namespace_has_every_name_of_tpinn():
     """In a fresh interpreter ``import tpinn_torch as ns`` has every name of
-    tpinn's ``__all__`` but ``sharding`` (not ported yet), e.g.
-    ``ns.driver.run_second_round`` and ``ns.checkpoint.save_experiment``,
-    and loads neither matplotlib nor h5py.  tpinn's list is read from its
-    source, so that this test imports no JAX."""
+    tpinn's ``__all__``, e.g. ``ns.driver.run_second_round``,
+    ``ns.checkpoint.save_experiment`` and ``ns.sharding.point_mesh``, loads
+    neither matplotlib nor h5py, and initializes no process group.  tpinn's
+    list is read from its source, so that this test imports no JAX."""
     import ast
 
     with open(os.path.join(_REPO, "tpinn", "__init__.py")) as f:
@@ -184,17 +209,17 @@ def test_namespace_has_every_name_of_tpinn():
     names = next(ast.literal_eval(node.value) for node in tree.body
                  if isinstance(node, ast.Assign)
                  and getattr(node.targets[0], "id", None) == "__all__")
-    names = [n for n in names if n != "sharding"]
-    assert "driver" in names and "checkpoint" in names
+    assert {"driver", "checkpoint", "sharding"} <= set(names)
     code = (
         "import sys, tpinn_torch as ns\n"
+        "import torch.distributed as dist\n"
         f"missing = [n for n in {names!r} if not hasattr(ns, n)]\n"
         "missing += [n for n in ns.__all__ if not hasattr(ns, n)]\n"
         "ns.driver.run_second_round, ns.driver.SECOND_ROUND_CHOICES\n"
-        "ns.checkpoint.save_experiment\n"
+        "ns.checkpoint.save_experiment, ns.sharding.point_mesh\n"
         "loaded = [m for m in ('matplotlib', 'h5py') if m in sys.modules]\n"
-        "print(missing, loaded)\n"
-        "sys.exit(1 if missing or loaded else 0)\n"
+        "print(missing, loaded, dist.is_initialized())\n"
+        "sys.exit(1 if missing or loaded or dist.is_initialized() else 0)\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "-c", code], cwd=_REPO, env=env,

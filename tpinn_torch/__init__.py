@@ -15,6 +15,8 @@ reference's (``import tpinn_torch as ns``):
     ns.minimize(pb, "keras" | "scipy" | "jax", ...)
     ns.models.MLP, ns.optimizers.Adam, ns.utils.plot_history
     ns.driver.run_second_round, ns.checkpoint.save_experiment
+    ns.sharding.point_mesh, shard_points, shard_pair (ranks of a process
+    group: importing the package initializes none)
 
 matplotlib and h5py stay unimported until a figure or an HDF5 file is
 written or read.
@@ -33,6 +35,7 @@ from tpinn_torch import optimizers
 from tpinn_torch import oracles
 from tpinn_torch import pipeline
 from tpinn_torch import profiling
+from tpinn_torch import sharding
 from tpinn_torch import utils
 from tpinn_torch import viz
 from tpinn_torch.config import SimulationOptions, get_dtype, set_dtype
@@ -65,4 +68,5 @@ __all__ = [
     "pipeline",
     "driver",
     "profiling",
+    "sharding",
 ]

@@ -34,6 +34,14 @@ Every training loss carries its ``point_residual`` for the LM round's
 per-point Gram.  ``from_arrays`` builds the driver from given grid, splits,
 boundary data, fit targets and initial parameters, so a run can start from
 exactly the data of another implementation.
+
+``mesh=`` (a ``sharding.point_mesh``) runs the driver on every rank of a
+point mesh: each rank builds the full batches, keeps its shard of each
+(the fused PDE batch tail-padded and masked by the kernels' valid-row
+count, every rhs-paired batch with ``shard_pair``'s mask-scale rows), the
+parameters are replicated, and the rounds sum the ranks' shares; the
+PRESS_0 gauge stays whole on every rank and counts once.  Rank 0 alone
+writes the run folder; every rank reads it on resume.
 """
 
 from __future__ import annotations
@@ -46,7 +54,7 @@ import numpy as np
 import torch
 
 from tpinn_torch import checkpoint as ckpt
-from tpinn_torch import config, experiment, viz
+from tpinn_torch import config, experiment, sharding, viz
 from tpinn_torch.config import SimulationOptions
 from tpinn_torch.geometry import (
     Normalization,
@@ -75,6 +83,7 @@ from tpinn_torch.pipeline import (
     neumann_residual,
     pde_point_residuals,
     pressure_mean_penalty,
+    scaled_point_residual,
     use_fused_pde_losses,
 )
 from tpinn_torch.problem import OptimizationProblem
@@ -89,6 +98,12 @@ SECOND_ROUND_CHOICES = (
 LM_ROUNDS = ("lm", "jax-lm", "gn")
 BFGS_ROUNDS = ("jax-bfgs", "bfgs")
 HOST_ROUNDS = ("scipy-parity", "scipy-host")
+
+
+def _scaled(residual, scale):
+    """A residual times ``shard_pair``'s mask-scale rows (as it is without
+    them: one device, or a batch that divides the mesh)."""
+    return residual if scale is None else residual * scale
 
 
 def check_second_round(second_round: Optional[str]) -> None:
@@ -215,6 +230,7 @@ class StandardNSDriver:
         device=None,
         dtype: Optional[torch.dtype] = None,
         arrays: Optional[dict] = None,
+        mesh=None,
     ):
         check_second_round(second_round)
         if spec.pressure_gauge not in (None, "fit", "mean"):
@@ -232,9 +248,12 @@ class StandardNSDriver:
         self.adam_lr = adam_lr
         self.device = config.resolve_device(device)
         self.dtype = dtype or config.get_dtype()
+        self.mesh = mesh
         self.folder: Optional[str] = None
         self.pb: Optional[OptimizationProblem] = None
         self._build(arrays)
+        if mesh is not None:
+            sharding.replicate(self.model.params, mesh)
 
     @classmethod
     def from_arrays(cls, spec: CaseSpec, opts: SimulationOptions, *,
@@ -247,7 +266,8 @@ class StandardNSDriver:
         (N, d), the index splits {PDE, Vel, Pres, Test}, the boundary points
         per edge, the boundary values per component and edge, the noisy fit
         targets [u, v, p], the initial params (list of {kernel, bias}) and,
-        unsteady, the t = 0 points (n_ic, 3)."""
+        unsteady, the t = 0 points (n_ic, 3).  Under a mesh every rank
+        passes the full arrays and keeps its shard."""
         arrays = dict(dom_grid=dom_grid, idx_set=idx_set, bnd_pts=bnd_pts,
                       bnd_val_num=bnd_val_num, sol_noise=sol_noise,
                       params=params, ic_pts=ic_pts)
@@ -256,6 +276,24 @@ class StandardNSDriver:
     def _tensor(self, a) -> torch.Tensor:
         return torch.as_tensor(np.array(a), dtype=self.dtype,
                                device=self.device)
+
+    def _maybe_shard(self, arr):
+        """This rank's rows of the fused PDE batch, tail-padded up to a
+        multiple of the mesh size (the kernels mask the padding by their
+        valid-row count and divide by the true count); the batch as it is
+        without a mesh."""
+        if self.mesh is None or arr.shape[0] == 0:
+            return arr
+        return sharding.shard_points(arr, self.mesh, pad=True)
+
+    def _shard_pair(self, x, *rhs):
+        """``(x, *rhs, scale)``: this rank's rows of an rhs-paired batch
+        with ``shard_pair``'s mask-scale rows; scale is None without a mesh
+        or when no padding was needed."""
+        if self.mesh is None or x.shape[0] == 0:
+            return (x, *rhs, None)
+        xs, rs, scale = sharding.shard_pair(x, rhs, self.mesh)
+        return (xs, *rs, scale)
 
     # ------------------------------------------------------------------ build
     def _build(self, arrays: Optional[dict]) -> None:
@@ -377,19 +415,26 @@ class StandardNSDriver:
         return out
 
     def _build_losses(self):
-        spec, opts = self.spec, self.opts
+        spec, opts, mesh = self.spec, self.opts, self.mesh
         model, norm = self.model, self.norm
-        LMS = LossMeanSquares
         take = lambda idx: self.dom_grid[torch.as_tensor(idx, device=self.device)]
 
-        def dir_pr(comp, x, rhs):
+        def LMS(*args, **kw):
+            return LossMeanSquares(*args, mesh=mesh, **kw)
+
+        def dir_pr(comp, x, rhs, scale):
+            """point_residual of a Dirichlet-style loss; under a mesh the
+            trailing mask-scale row keeps the per-point stack exact."""
             r = torch.broadcast_to(torch.as_tensor(rhs, dtype=x.dtype,
                                                    device=x.device),
                                    (x.shape[0],))
-            return (dirichlet_point_residual(model, comp), (x, r))
+            fn = dirichlet_point_residual(model, comp)
+            if scale is None:
+                return (fn, (x, r))
+            return (scaled_point_residual(fn), (x, r, scale))
 
         losses = []
-        x_pde = take(self.idx_set["PDE"])
+        x_pde_raw = take(self.idx_set["PDE"])
         if opts.use_collloss:
             weights = (spec.weight("PDE_MASS", 1e1),
                        spec.weight("PDE_MOMU", 1e0),
@@ -399,33 +444,45 @@ class StandardNSDriver:
             # driver keeps the unfused PDE losses
             wants_residuals = self.second_round in LM_ROUNDS
             if not wants_residuals and use_fused_pde_losses(
-                    model, spec.unsteady, spec.dim_in):
+                    model, spec.unsteady, spec.dim_in, mesh):
                 # one-pass objective: loss + log MSEs + parameter gradients
-                # from one kernel launch (its plain twin on the CPU)
-                fused = FusedNSWeightedObjective(model, x_pde, spec.physics,
-                                                 norm, weights=weights)
+                # from one kernel launch (its plain twin on the CPU); under
+                # a mesh on this rank's shard
+                fused = FusedNSWeightedObjective(
+                    model, self._maybe_shard(x_pde_raw), spec.physics, norm,
+                    weights=weights, n_true=int(x_pde_raw.shape[0]),
+                    mesh=mesh)
                 f_mass, f_momu, f_momv = fused.loss_fns()
                 losses += [
-                    PrecomputedMeanSquares("PDE_MASS", f_mass, weight=weights[0]),
-                    PrecomputedMeanSquares("PDE_MOMU", f_momu, weight=weights[1]),
-                    PrecomputedMeanSquares("PDE_MOMV", f_momv, weight=weights[2]),
+                    PrecomputedMeanSquares("PDE_MASS", f_mass,
+                                           weight=weights[0], mesh=mesh),
+                    PrecomputedMeanSquares("PDE_MOMU", f_momu,
+                                           weight=weights[1], mesh=mesh),
+                    PrecomputedMeanSquares("PDE_MOMV", f_momv,
+                                           weight=weights[2], mesh=mesh),
                 ]
             else:
                 # its own name: the closures read it when called, after the
-                # boundary loop below has rebound ``bundle``
+                # boundary loop below has rebound ``bundle``; a padding row
+                # carries scale 0, so it adds no residual and no Gram row
+                x_pde, s_pde = self._shard_pair(x_pde_raw)
                 pde_bundle = ResidualBundle(model, x_pde,
                                             unsteady=spec.unsteady)
-                p_mass, p_momu, p_momv = pde_point_residuals(
-                    model, spec.physics, norm, spec.unsteady)
+                pts = pde_point_residuals(model, spec.physics, norm,
+                                          spec.unsteady)
+                pde_pr = [(p, (x_pde,)) if s_pde is None else
+                          (scaled_point_residual(p), (x_pde, s_pde))
+                          for p in pts]
                 losses += [
-                    LMS("PDE_MASS", lambda: mass_residual(pde_bundle, norm),
-                        weight=weights[0], point_residual=(p_mass, (x_pde,))),
-                    LMS("PDE_MOMU", lambda: momentum_residual(
-                        pde_bundle, 0, spec.physics, norm), weight=weights[1],
-                        point_residual=(p_momu, (x_pde,))),
-                    LMS("PDE_MOMV", lambda: momentum_residual(
-                        pde_bundle, 1, spec.physics, norm), weight=weights[2],
-                        point_residual=(p_momv, (x_pde,))),
+                    LMS("PDE_MASS", lambda: _scaled(
+                        mass_residual(pde_bundle, norm), s_pde),
+                        weight=weights[0], point_residual=pde_pr[0]),
+                    LMS("PDE_MOMU", lambda: _scaled(momentum_residual(
+                        pde_bundle, 0, spec.physics, norm), s_pde),
+                        weight=weights[1], point_residual=pde_pr[1]),
+                    LMS("PDE_MOMV", lambda: _scaled(momentum_residual(
+                        pde_bundle, 1, spec.physics, norm), s_pde),
+                        weight=weights[2], point_residual=pde_pr[2]),
                 ]
 
         if opts.use_boundary:
@@ -434,70 +491,79 @@ class StandardNSDriver:
             for comp in (0, 1):
                 for edge, rhs in self.bnd_val_num[comp].items():
                     tag = f"{comp_tags[comp]}_{edge_tags[edge]}"
-                    xb = self.bnd_pts[edge]
+                    xb, rb, sb = self._shard_pair(self.bnd_pts[edge], rhs)
                     if (edge, comp) in spec.neumann:
                         direction = spec.neumann[(edge, comp)]
                         bundle = ResidualBundle(model, xb,
                                                 unsteady=spec.unsteady)
-                        rb = torch.broadcast_to(rhs, (xb.shape[0],))
+                        fn_n = neumann_point_residual(
+                            model, comp, direction, spec.physics, norm,
+                            spec.unsteady)
+                        rb_full = torch.broadcast_to(rb, (xb.shape[0],))
+                        pr = ((fn_n, (xb, rb_full)) if sb is None else
+                              (scaled_point_residual(fn_n), (xb, rb_full, sb)))
                         losses.append(LMS(
                             f"BCN_{tag}",
-                            (lambda b=bundle, c=comp, d=direction, r=rhs:
-                             neumann_residual(b, c, d, spec.physics, norm,
-                                              rhs=r)),
+                            (lambda b=bundle, c=comp, d=direction, r=rb, s=sb:
+                             _scaled(neumann_residual(b, c, d, spec.physics,
+                                                      norm, rhs=r), s)),
                             weight=spec.weight("BCN", 1e0),
-                            point_residual=(neumann_point_residual(
-                                model, comp, direction, spec.physics, norm,
-                                spec.unsteady), (xb, rb))))
+                            point_residual=pr))
                     else:
                         losses.append(LMS(
                             f"BCD_{tag}",
-                            (lambda x=xb, c=comp, r=rhs:
-                             dirichlet_residual(model, x, c, r)),
+                            (lambda x=xb, c=comp, r=rb, s=sb:
+                             _scaled(dirichlet_residual(model, x, c, r), s)),
                             weight=spec.weight("BCD", 1e0),
-                            point_residual=dir_pr(comp, xb, rhs)))
+                            point_residual=dir_pr(comp, xb, rb, sb)))
 
         if spec.unsteady and opts.use_initialc and self.ic_pts is not None:
-            xi = self.ic_pts
+            xi, si = self._shard_pair(self.ic_pts)
             for comp, name in enumerate(("IC_u", "IC_v", "IC_p")):
                 losses.append(LMS(
-                    name, (lambda c=comp:
-                           initial_condition_residual(model, xi, c, 0.0)),
+                    name, (lambda c=comp: _scaled(
+                        initial_condition_residual(model, xi, c, 0.0), si)),
                     weight=spec.weight("IC", 1e0),
-                    point_residual=dir_pr(comp, xi, 0.0)))
+                    point_residual=dir_pr(comp, xi, 0.0, si)))
 
-        x_vel = take(self.idx_set["Vel"])
+        x_vel, fit_u, fit_v, s_vel = self._shard_pair(
+            take(self.idx_set["Vel"]), self.sol_noise[0], self.sol_noise[1])
         if opts.fit_velocity:
-            fit_u, fit_v = self.sol_noise[0], self.sol_noise[1]
             losses += [
-                LMS("Fit_u", lambda: dirichlet_residual(model, x_vel, 0, fit_u),
+                LMS("Fit_u", lambda: _scaled(
+                    dirichlet_residual(model, x_vel, 0, fit_u), s_vel),
                     weight=spec.weight("FIT", 1e0),
-                    point_residual=dir_pr(0, x_vel, fit_u)),
-                LMS("Fit_v", lambda: dirichlet_residual(model, x_vel, 1, fit_v),
+                    point_residual=dir_pr(0, x_vel, fit_u, s_vel)),
+                LMS("Fit_v", lambda: _scaled(
+                    dirichlet_residual(model, x_vel, 1, fit_v), s_vel),
                     weight=spec.weight("FIT", 1e0),
-                    point_residual=dir_pr(1, x_vel, fit_v)),
+                    point_residual=dir_pr(1, x_vel, fit_v, s_vel)),
             ]
 
         x_pres = take(self.idx_set["Pres"])
         if spec.pressure_gauge == "fit" and opts.fit_pressure:
-            fit_p = self.sol_noise[2]
+            xp, fit_p, s_p = self._shard_pair(x_pres, self.sol_noise[2])
             losses.append(LMS(
-                "Fit_p", lambda: dirichlet_residual(model, x_pres, 2, fit_p),
+                "Fit_p", lambda: _scaled(
+                    dirichlet_residual(model, xp, 2, fit_p), s_p),
                 weight=spec.weight("FIT", 1e0),
-                point_residual=dir_pr(2, x_pres, fit_p)))
+                point_residual=dir_pr(2, xp, fit_p, s_p)))
         elif spec.pressure_gauge == "mean":
-            # |mean p| over the pressure split, else over the PDE batch
-            gauge_pts = x_pres if len(self.idx_set["Pres"]) else x_pde
+            # |mean p| over the pressure split, else over the PDE batch: the
+            # raw batch, whole on every rank (a replicated loss, counted
+            # once), since padding must not move a mean of p
+            gauge_pts = x_pres if len(self.idx_set["Pres"]) else x_pde_raw
             losses.append(Loss(
                 "PRESS_0", lambda: pressure_mean_penalty(model, gauge_pts),
                 weight=spec.weight("PRESS_0", 1e-2), non_negative=True))
 
-        it = self.idx_set["Test"]
-        x_test = take(it)
-        it_t = torch.as_tensor(it, device=self.device)
-        tst = [self.sol_norm[c][it_t] for c in range(3)]
+        it_t = torch.as_tensor(self.idx_set["Test"], device=self.device)
+        x_test, *tst, s_tst = self._shard_pair(
+            take(self.idx_set["Test"]), *(self.sol_norm[c][it_t]
+                                          for c in range(3)))
         losses_test = [
-            LMS(name, (lambda c=c: dirichlet_residual(model, x_test, c, tst[c])))
+            LMS(name, (lambda c=c: _scaled(
+                dirichlet_residual(model, x_test, c, tst[c]), s_tst)))
             for c, name in enumerate(("u_test", "v_test", "p_test"))
         ]
         return losses, losses_test
@@ -518,17 +584,20 @@ class StandardNSDriver:
         parameters, and its optimizer state for the second round of the
         same kind to adopt); the Adam round is skipped and the second round
         appends to the loaded history.  ``skip_training`` returns after
-        loading."""
+        loading.  Under a mesh rank 0 alone makes the folder and writes into
+        it (the callbacks are its own), and every rank returns once the
+        history is written."""
         epochs = self.opts.epochs if epochs is None else epochs
         if resume_from is not None:
             self.folder = resume_from
         else:
-            self.folder = experiment.prepare_folder(self.base_dir,
-                                                    self.save_results)
+            self.folder = sharding.on_rank0(
+                self.mesh, experiment.prepare_folder, self.base_dir,
+                self.save_results)
         pb = OptimizationProblem(self.model, self.losses, self.losses_test)
         if resume_from is not None:
             self._resume(pb, resume_from)
-        if callbacks:
+        if callbacks and sharding.mesh_rank(self.mesh) == 0:
             pb.callbacks.append(HistoryPlotCallback(
                 frequency=100, gui=False,
                 filename=os.path.join(self.folder, "Loss_Trend_Full.png"),
@@ -545,7 +614,8 @@ class StandardNSDriver:
         run_second_round(pb, self.second_round, epochs,
                          scipy_method=self.scipy_method,
                          adam_lr=self.adam_lr)
-        pb.save_history(os.path.join(self.folder, "History_Loss.json"))
+        sharding.on_rank0(self.mesh, pb.save_history,
+                          os.path.join(self.folder, "History_Loss.json"))
         return pb
 
     def _resume(self, pb: OptimizationProblem, folder: str) -> None:
@@ -581,11 +651,16 @@ class StandardNSDriver:
         checkpoint), the contour figure (unsteady: at the final slice, and
         with ``exact_data`` the per-slice figures of ``save_time_slices``),
         the grouped loss plot and the recap.  The figures need
-        matplotlib."""
-        folder = self.folder
-        if folder is None or self.pb is None:
+        matplotlib.  Under a mesh rank 0 alone writes, and every rank
+        returns once it has."""
+        if self.folder is None or self.pb is None:
             raise RuntimeError("save_artifacts: call train() first")
-        self.save_experiment()
+        sharding.on_rank0(self.mesh, self._save_artifacts, loss_groups,
+                          exact_grids)
+
+    def _save_artifacts(self, loss_groups, exact_grids) -> None:
+        folder = self.folder
+        self._save_experiment()
         gx, gy, u, v, p = self.predict_grid()
         if exact_grids is None and self.spec.exact is not None:
             pts = torch.as_tensor(self._grid_points(gx, gy), dtype=self.dtype)
@@ -602,7 +677,7 @@ class StandardNSDriver:
             viz.plot_loss_groups(
                 self.pb.history.to_dict(), loss_groups,
                 filename=os.path.join(folder, "Loss_Trend_Reduced.png"))
-        self.write_recap()
+        self._write_recap()
 
     def save_time_slices(self, folder: str, n_time_stamp: int = 4) -> list:
         """The unsteady case's exact-vs-PINN contour figures at
@@ -641,13 +716,21 @@ class StandardNSDriver:
     def save_experiment(self) -> str:
         """Stage 10 alone: Model.json, the weights, History_Loss.json and
         checkpoint.pkl (with the last round's optimizer state) in the run
-        folder; returns the weights file's name."""
+        folder; returns the weights file's name.  Under a mesh rank 0
+        writes."""
+        return sharding.on_rank0(self.mesh, self._save_experiment)
+
+    def _save_experiment(self) -> str:
         return ckpt.save_experiment(self.folder, self.model,
                                     self.pb.history,
                                     opt_state=self.pb.last_opt_state)
 
     def write_recap(self) -> str:
-        """Stage 13 alone: Test_Options.txt in the run folder."""
+        """Stage 13 alone: Test_Options.txt in the run folder (under a
+        mesh, by rank 0)."""
+        return sharding.on_rank0(self.mesh, self._write_recap)
+
+    def _write_recap(self) -> str:
         return experiment.write_recap(
             self.folder, self.spec.name, self.opts.epochs, self.opts.n_pts,
             noise_fit=self.opts.noise_fit, noise_bnd=self.opts.noise_bnd,

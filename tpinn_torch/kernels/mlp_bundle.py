@@ -342,6 +342,8 @@ def _launch(bwd: bool, params, x, physics, norm, gbar, n_valid, n_mean,
     widths = _check_layout(params, x, physics)
     n = int(x.shape[0])
     n_eff = n if n_valid is None else min(n, int(n_valid))
+    if n_eff <= 0:
+        return _empty_sums(bwd, params, x)
     plan = _plan("ns_residual", bwd, x, widths, n_eff,
                  n if n_mean is None else int(n_mean))
     _check_tensors(params, x, "ns_residual")
@@ -365,6 +367,16 @@ def _launch(bwd: bool, params, x, physics, norm, gbar, n_valid, n_mean,
                            f"failed: cudaError {rc}")
     LAUNCHES["ns_residual_bwd" if bwd else "ns_residual_fwd"] += 1
     return _unpack(plan, buf)
+
+
+def _empty_sums(bwd: bool, params, x: torch.Tensor):
+    """What a call of kernel 1 or 2 over no valid row returns, without a
+    launch: zero dparams (backward), zero MSEs and a zero loss slot.  A
+    shard of a point mesh that holds padding alone makes such a call."""
+    dparams = [{k: torch.zeros_like(p[k]) for k in ("kernel", "bias")}
+               for p in params] if bwd else []
+    sums = torch.zeros(4, dtype=x.dtype, device=x.device)
+    return dparams, sums[:3], sums[3:]
 
 
 def _unpack(plan: _Plan, buf: torch.Tensor):

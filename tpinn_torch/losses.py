@@ -9,6 +9,11 @@
 
 History_Loss.json keeps per-loss ``{weight, non_negative, display_sqrt,
 log}`` metadata.
+
+Under a point mesh (``tpinn_torch.sharding``) a loss built with
+``mesh=mesh`` computes this rank's share of the global value, normalized by
+the global count, so that the shares sum to it over the mesh; a loss
+without one is computed whole on every rank and counted once.
 """
 
 from __future__ import annotations
@@ -22,6 +27,9 @@ class Loss:
     """Generic named scalar loss: raw value = fn() / normalization."""
 
     display_sqrt = False
+    # the point mesh whose ranks each hold a share of the loss; None: every
+    # rank computes it whole (replicated, counted once)
+    mesh = None
 
     def __init__(self, name: str, fn: Callable[[], torch.Tensor],
                  weight: float = 1.0, normalization: float = 1.0,
@@ -56,31 +64,40 @@ class LossMeanSquares(Loss):
     ``point_residual`` (optional) is the pointwise form of the residual,
     ``(point_fn, args)`` with ``point_fn(params, *args_i) -> scalar`` for
     row i, as the reference's cases pass it for the Levenberg–Marquardt
-    round's per-point Gram, which reads it."""
+    round's per-point Gram, which reads it.
+
+    ``mesh``: ``fn`` returns this rank's rows of a batch padded to a
+    multiple of the mesh size (``sharding.shard_pair``), and the raw value
+    is their share of the global mean: Σ r² over the global padded count."""
 
     display_sqrt = True
 
     def __init__(self, name: str, fn: Callable[[], torch.Tensor],
                  weight: float = 1.0, normalization: float = 1.0,
-                 point_residual=None):
+                 point_residual=None, mesh=None):
         super().__init__(name, fn, weight=weight,
                          normalization=normalization, non_negative=True)
         self.point_residual = point_residual
+        self.mesh = mesh
 
     def raw_value(self) -> torch.Tensor:
         r = self.fn() / self.normalization
-        return torch.mean(r * r)
+        if self.mesh is None:
+            return torch.mean(r * r)
+        return torch.sum(r * r) / (r.numel() * self.mesh.size())
 
 
 class PrecomputedMeanSquares(Loss):
     """A mean-of-squares loss whose ``fn`` already returns the MSE scalar;
-    keeps LossMeanSquares' history metadata."""
+    keeps LossMeanSquares' history metadata.  ``mesh``: ``fn`` returns this
+    rank's share of the global MSE (a fused objective under a mesh)."""
 
     display_sqrt = True
 
     def __init__(self, name: str, fn: Callable[[], torch.Tensor],
-                 weight: float = 1.0):
+                 weight: float = 1.0, mesh=None):
         super().__init__(name, fn, weight=weight, non_negative=True)
+        self.mesh = mesh
 
     def raw_value(self) -> torch.Tensor:
         return self.fn()

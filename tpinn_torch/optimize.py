@@ -31,6 +31,14 @@
   and LM carry the parameters as a split pair.
 
 Second-order rounds run with IEEE float32 products (no TF32).
+
+Under a point mesh (``pb.mesh``) every round runs on every rank with the
+same replicated state: each evaluation sums the ranks' shares in one
+collective (``OptimizationProblem``), and every branch (line-search
+trials, BFGS's curvature guard, LM's accept test and rungs) reads summed
+values only.  The host steps, scipy's round and LM's ``numpy.linalg.eigh``,
+run on every rank on the same summed inputs and give the same bits, so θ
+stays identical on every rank.
 """
 
 from __future__ import annotations
@@ -43,6 +51,7 @@ import time
 import numpy as np
 import torch
 
+from tpinn_torch import sharding
 from tpinn_torch.history import LOG_STRIDE
 from tpinn_torch.linesearch import ScaleByZoomLinesearch
 from tpinn_torch.losses import LossMeanSquares
@@ -115,8 +124,7 @@ def _minimize_first_order(pb: OptimizationProblem, optimizer: Optimizer,
     done = 0
     for target in _log_iters(num_epochs, LOG_STRIDE)[1:]:
         for _ in range(target - done):
-            loss = pb.loss_fn()
-            grads = torch.autograd.grad(loss, params, materialize_grads=True)
+            _, grads = pb.loss_and_grads(params)
             optimizer.step(params, grads)
         done = target
         _log_point(pb, done)
@@ -342,13 +350,13 @@ def _minimize_jax_bfgs(pb: OptimizationProblem, num_epochs: int,
         counts["evaluations"] += 1
         return pb.flat_value_and_grad(x)
 
-    def res_grad(x):
+    def res_grad(x, r_ref=None):
         counts["evaluations"] += 1
-        return pb.residuals_and_grad(x)
+        return pb.residuals_and_grad(x, r_ref)
 
-    def eval_ch(hi, lo):
+    def eval_ch(hi, lo, ref=None):
         counts["evaluations"] += 1
-        return pb.residuals_split(hi, lo)
+        return pb.residuals_split(hi, lo, ref)
 
     def direction(H, g):
         d = -(H @ g)
@@ -395,14 +403,14 @@ def _minimize_jax_bfgs(pb: OptimizationProblem, num_epochs: int,
         d, dg = direction(H, g)
 
         def d_1d(a):
-            ra, ga_vec = res_grad(x + a * d)
-            return torch.dot(ra - r, ra + r), torch.dot(ga_vec, d)
+            _, ga_vec, dphi = res_grad(x + a * d, r)
+            return dphi, torch.dot(ga_vec, d)
 
         # φ(0) = 0 in Δ-space: Armijo reads Δφ(a) ≤ c1·a·φ'(0)
         alpha = search(d_1d, torch.zeros_like(f), dg)
         x_new = x + alpha * d
-        r_new, g_new = res_grad(x_new)
-        f_new = f + torch.dot(r_new - r, r_new + r)
+        r_new, g_new, df = res_grad(x_new, r)
+        f_new = f + df
         finite = _all_finite(f_new, x_new, g_new, r_new)
         x_new = torch.where(finite, x_new, x)
         f_new = torch.where(finite, f_new, f)
@@ -421,16 +429,15 @@ def _minimize_jax_bfgs(pb: OptimizationProblem, num_epochs: int,
 
         def d_1d(a):
             hia, loa = _df_add(hi, lo, a * d)
-            ra, dra, ga_vec = eval_ch(hia, loa)
             # channel by channel: the r-channel cancels bit for bit while
             # hi is unchanged, and the dr-channel resolves sub-ulp steps
-            dphi = torch.dot((ra - r) + (dra - dr), (ra + r) + (dra + dr))
+            _, _, ga_vec, dphi = eval_ch(hia, loa, (r, dr))
             return dphi, torch.dot(ga_vec, d)
 
         alpha = search(d_1d, torch.zeros_like(f), dg)
         hi_n, lo_n = _df_add(hi, lo, alpha * d)
-        r_n, dr_n, g_n = eval_ch(hi_n, lo_n)
-        f_n = f + torch.dot((r_n - r) + (dr_n - dr), (r_n + r) + (dr_n + dr))
+        r_n, dr_n, g_n, df = eval_ch(hi_n, lo_n, (r, dr))
+        f_n = f + df
         finite = _all_finite(f_n, hi_n, g_n, r_n, dr_n)
         hi_n = torch.where(finite, hi_n, hi)
         lo_n = torch.where(finite, lo_n, lo)
@@ -460,11 +467,11 @@ def _minimize_jax_bfgs(pb: OptimizationProblem, num_epochs: int,
             carry = (x0, f0, g0, eye, first)
         elif kind == "bfgs_split":
             lo0 = torch.zeros_like(x0)
-            r0, dr0, g0 = eval_ch(x0, lo0)
-            carry = (x0, lo0, torch.dot(r0, r0), r0, dr0, g0, eye, first)
+            r0, dr0, g0, f0 = eval_ch(x0, lo0)
+            carry = (x0, lo0, f0, r0, dr0, g0, eye, first)
         else:
-            r0, g0 = res_grad(x0)
-            carry = (x0, torch.dot(r0, r0), r0, g0, eye, first)
+            r0, g0, f0 = res_grad(x0)
+            carry = (x0, f0, r0, g0, eye, first)
 
     pb.history.start_round("jax_BFGS")
     pb.last_round_name = "jax_BFGS"
@@ -693,14 +700,19 @@ def _collect_point_entries(pb: OptimizationProblem, r_batch: torch.Tensor):
     ``point_residual`` (wrong rhs, stale points) cannot make the round
     optimize another objective.  None, with the JAX package's message,
     when some loss has none or the check fails: the round then takes the
-    chunked Jacobian."""
+    chunked Jacobian.  Under a mesh the entries are this rank's rows (each
+    scaled by the global count, a replicated loss's on rank 0 alone) and
+    the check holds only when it holds on every rank."""
+    if any(getattr(l, "point_residual", None) is None for l in pb.losses):
+        return None
     entries = []
     for loss in pb.losses:
-        pr = getattr(loss, "point_residual", None)
-        if pr is None:
-            return None
-        fn, args = pr
+        if not pb._counts(loss):
+            continue
+        fn, args = loss.point_residual
         n_rows = int(args[0].shape[0])
+        if loss.mesh is not None:
+            n_rows *= pb._world
         scale = float(np.sqrt(loss.weight / n_rows) / loss.normalization)
         entries.append((fn, tuple(args), scale))
 
@@ -712,16 +724,19 @@ def _collect_point_entries(pb: OptimizationProblem, r_batch: torch.Tensor):
             params, *args).reshape(-1) * scale for fn, args, scale in entries]
     r_pts = torch.cat(parts).cpu().numpy()
     r_b = r_batch.cpu().numpy()
-    if r_pts.shape != r_b.shape:
+    ok = r_pts.shape == r_b.shape
+    if not ok:
         print(f"  LM: point_residual stack shape {r_pts.shape} != batch "
               f"{r_b.shape}; falling back to chunked jacobian", flush=True)
-        return None
-    atol = 1e-5 * float(np.max(np.abs(r_b)) + 1e-30)
-    if not np.allclose(r_pts, r_b, rtol=1e-4, atol=atol):
-        worst = float(np.max(np.abs(r_pts - r_b)))
-        print(f"  LM: point_residual stack deviates from batch closures "
-              f"(max |Δ| {worst:.3e}); falling back to chunked jacobian",
-              flush=True)
+    else:
+        atol = 1e-5 * float(np.max(np.abs(r_b)) + 1e-30)
+        ok = bool(np.allclose(r_pts, r_b, rtol=1e-4, atol=atol))
+        if not ok:
+            worst = float(np.max(np.abs(r_pts - r_b)))
+            print(f"  LM: point_residual stack deviates from batch closures "
+                  f"(max |Δ| {worst:.3e}); falling back to chunked jacobian",
+                  flush=True)
+    if not sharding.all_ranks(pb.mesh, ok, r_batch.device):
         return None
     return entries
 
@@ -829,7 +844,7 @@ def _minimize_lm(pb: OptimizationProblem, num_epochs: int):
             Gs.append(G)
             rs.append(r)
         G, r = torch.cat(Gs), torch.cat(rs)
-        return G.T @ G, G.T @ r
+        return pb.mesh_sum(G.T @ G, G.T @ r)
 
     # seconds of each part of every iteration, the device synchronised at
     # each boundary so that its work is charged to the part that queued it
@@ -862,9 +877,11 @@ def _minimize_lm(pb: OptimizationProblem, num_epochs: int):
             JTJ, JTr = gram_fast(hi)
         else:
             _, Jt = pb.residuals_jacobian(hi)
-            JTJ, JTr = Jt @ Jt.T, Jt @ rv[0]
             if split:
-                JTr_lo = Jt @ rv[1]
+                JTJ, JTr, JTr_lo = pb.mesh_sum(Jt @ Jt.T, Jt @ rv[0],
+                                               Jt @ rv[1])
+            else:
+                JTJ, JTr = pb.mesh_sum(Jt @ Jt.T, Jt @ rv[0])
         lap("gram")
         JTJ = JTJ.cpu().numpy()
         JTr = JTr.cpu().numpy().astype(np.float64)
@@ -883,8 +900,10 @@ def _minimize_lm(pb: OptimizationProblem, num_epochs: int):
     def pair_diff(new, cur) -> float:
         (r1, d1), (r0, d0) = new, cur
         if d1 is None:
-            return float(torch.dot(r1 - r0, r1 + r0))
-        return float(torch.dot((r1 - r0) + (d1 - d0), (r1 + r0) + (d1 + d0)))
+            df = torch.dot(r1 - r0, r1 + r0)
+        else:
+            df = torch.dot((r1 - r0) + (d1 - d0), (r1 + r0) + (d1 + d0))
+        return float(pb.mesh_sum(df)[0])
 
     def ladder(theta, mu: float, JTJ, JTr, r_cur):
         """One iteration's damping ladder on the device: (θ, μ, accepted),
@@ -911,7 +930,7 @@ def _minimize_lm(pb: OptimizationProblem, num_epochs: int):
             lap("solve")
             th = theta + delta
             r = pb.residuals_flat(th)
-            df = torch.dot(r - r_cur, r + r_cur)
+            (df,) = pb.mesh_sum(torch.dot(r - r_cur, r + r_cur))
             ok = ((info == 0) & torch.isfinite(delta).all()
                   & torch.isfinite(df) & (df < 0))
             mu_rej = mu_t * 10.0
@@ -959,7 +978,7 @@ def _minimize_lm(pb: OptimizationProblem, num_epochs: int):
             else:
                 # the residuals come with the Jacobian's linearization
                 r_cur, Jt = pb.residuals_jacobian(theta_dev)
-                JTJ, JTr = Jt @ Jt.T, Jt @ r_cur
+                JTJ, JTr = pb.mesh_sum(Jt @ Jt.T, Jt @ r_cur)
             lap("gram")
             theta_dev, mu, accepted = ladder(theta_dev, mu, JTJ, JTr, r_cur)
             converged = not accepted  # saturated, or an invalid w_max

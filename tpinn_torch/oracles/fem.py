@@ -327,6 +327,16 @@ def solve_navier_stokes_unsteady(
     return times, snaps
 
 
+def boundary_nodes(tris: np.ndarray) -> np.ndarray:
+    """Node indices on the mesh boundary (the nodes of the edges that one
+    triangle alone owns), sorted."""
+    edges = np.concatenate(
+        [tris[:, [0, 1]], tris[:, [1, 2]], tris[:, [2, 0]]], axis=0)
+    uniq, counts = np.unique(np.sort(edges, axis=1), axis=0,
+                             return_counts=True)
+    return np.unique(uniq[counts == 1])
+
+
 def solve_navier_stokes(
     nodes: np.ndarray,
     tris: np.ndarray,

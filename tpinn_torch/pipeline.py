@@ -25,6 +25,11 @@ Two evaluators feed the PDE losses:
   losses the Levenberg–Marquardt round needs;
 * the ``*_point_residual`` builders — the same rows at one point with
   explicit params, for the LM round's per-point Gram.
+
+Under a point mesh (``mesh=``) the fused objectives take this rank's shard
+of a batch of ``n_true`` rows and run the kernel on it with the shard's
+valid-row count and the global mean denominator: their values are this
+rank's shares, which the problem's evaluation sums over the mesh.
 """
 
 from __future__ import annotations
@@ -36,6 +41,7 @@ from typing import Optional
 
 import torch
 
+from tpinn_torch import sharding
 from tpinn_torch.geometry import Normalization
 from tpinn_torch.kernels import mlp_bundle
 from tpinn_torch.models import Model
@@ -203,18 +209,33 @@ def pressure_mean_penalty(model: Model, points: torch.Tensor):
     return torch.abs(torch.mean(model(points)[:, 2]))
 
 
+def _fused_counts(x: torch.Tensor, mesh, n_true: Optional[int]):
+    """(n_true, n_valid): the batch's true row count (default: its rows)
+    and the rows of ``x`` the kernel sums, this rank's valid rows under a
+    mesh (where ``n_true`` defaults to every row of every shard)."""
+    if mesh is not None:
+        n_valid, n_true = sharding.shard_counts(x, mesh, n_true)
+        return n_true, n_valid
+    n_true = int(x.shape[0]) if n_true is None else int(n_true)
+    return n_true, n_true
+
+
 class FusedNSResidualMSEs:
     """The three PDE MSEs (mass, mom-u, mom-v) from one call of
     ``ns_residual_mse`` (kernel 2 forward, kernel 1 backward on CUDA),
-    shared by the three per-loss closures through a version-keyed memo."""
+    shared by the three per-loss closures through a version-keyed memo.
+    ``n_true``: the batch's true row count, the mean denominator (rows of
+    ``x`` beyond it are padding); ``mesh``: ``x`` is this rank's shard."""
 
     def __init__(self, model: Model, x: torch.Tensor, physics: NSPhysics,
-                 norm: Normalization, n_true: Optional[int] = None):
+                 norm: Normalization, n_true: Optional[int] = None,
+                 mesh=None):
         self.model = model
         self.x = x
         self.physics = physics
         self.norm = norm
-        self.n_true = int(x.shape[0]) if n_true is None else int(n_true)
+        self.mesh = mesh
+        self.n_true, self.n_valid = _fused_counts(x, mesh, n_true)
         self._memo = None
 
     def mses(self):
@@ -223,7 +244,7 @@ class FusedNSResidualMSEs:
         if self._memo is None or self._memo[0] != key:
             m = mlp_bundle.ns_residual_mse(
                 params, self.x, self.physics, self.norm,
-                n_valid=self.n_true, n_mean=self.n_true)
+                n_valid=self.n_valid, n_mean=self.n_true)
             self._memo = (key, m)
         return self._memo[1]
 
@@ -245,10 +266,12 @@ class FusedNSWeightedObjective:
     keyed on the parameters' version counters (the optimizer updates them in
     place, so object identity would hand back the previous step's loss).
     Under ``torch.no_grad`` (the logged evaluations) no gradient is needed,
-    so the MSEs come from the forward kernel alone."""
+    so the MSEs come from the forward kernel alone.  ``n_true`` and ``mesh``
+    as in :class:`FusedNSResidualMSEs`."""
 
     def __init__(self, model: Model, x: torch.Tensor, physics: NSPhysics,
-                 norm: Normalization, weights, n_true: Optional[int] = None):
+                 norm: Normalization, weights, n_true: Optional[int] = None,
+                 mesh=None):
         self.model = model
         self.x = x
         self.physics = physics
@@ -256,7 +279,8 @@ class FusedNSWeightedObjective:
         self.weights = tuple(float(w) for w in weights)
         self._weights_t = torch.tensor(self.weights, dtype=x.dtype,
                                        device=x.device)
-        self.n_true = int(x.shape[0]) if n_true is None else int(n_true)
+        self.mesh = mesh
+        self.n_true, self.n_valid = _fused_counts(x, mesh, n_true)
         self._memo = None
 
     def _compute(self):
@@ -267,11 +291,11 @@ class FusedNSWeightedObjective:
         if torch.is_grad_enabled():
             out = mlp_bundle.ns_residual_weighted_obj(
                 params, self.x, self.physics, self.norm, self._weights_t,
-                n_valid=self.n_true, n_mean=self.n_true)
+                n_valid=self.n_valid, n_mean=self.n_true)
         else:
             out = (None, mlp_bundle.ns_residual_mse(
                 params, self.x, self.physics, self.norm,
-                n_valid=self.n_true, n_mean=self.n_true))
+                n_valid=self.n_valid, n_mean=self.n_true))
         self._memo = (key, out)
         return out
 
@@ -343,7 +367,7 @@ class FusedPoissonObjective:
 
 
 def use_fused_pde_losses(model: Model, spec_unsteady: bool,
-                         dim_in: int) -> bool:
+                         dim_in: int, mesh=None) -> bool:
     """Route the PDE losses through a fused objective: a plain tanh MLP,
     steady (x, y) or unsteady (t, x, y), whose widths the CUDA kernels take:
     the NS kernels for a (u, v, p) head, the Poisson kernels for a scalar
@@ -351,7 +375,8 @@ def use_fused_pde_losses(model: Model, spec_unsteady: bool,
     plain twin (CPU).  An eligible net that no kernel takes warns, naming
     its widths, and takes the plain PyTorch path.  ``TPINN_USE_PALLAS``
     set to "0", "false" or "False" switches the fused objectives off, as
-    in the JAX package."""
+    in the JAX package.  Under a point mesh the same routing holds: the
+    kernel runs on each rank's shard."""
     if os.environ.get("TPINN_USE_PALLAS") in _OFF_VALUES:
         return False
     eligible = dim_in == (3 if spec_unsteady else 2) and model.is_plain_tanh()

@@ -7,6 +7,15 @@ the model itself.  Two flat views of the parameters serve the optimizers,
 both in the JAX package's ``ravel_pytree`` order: a float64 host vector for
 the scipy round, and a device tensor for the on-device rounds (no host
 copy per evaluation).
+
+Under a point mesh (the mesh of its sharded losses) every evaluation the
+rounds call sums the ranks' shares in one collective: the
+loss with its gradient, the logged raw losses, the paired loss change with
+its gradient.  The residual vectors (``residuals_at``, ``residuals_flat``,
+``residuals_jvp``, ``residuals_jacobian``) are this rank's rows, each
+scaled by the global count, so that ||R||² sums to the global loss; their
+consumers reduce what they make of them (``mesh_sum``).  A loss without a
+mesh is computed whole on every rank and counted on rank 0 alone.
 """
 
 from __future__ import annotations
@@ -17,6 +26,7 @@ from typing import List, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from tpinn_torch import sharding
 from tpinn_torch.history import History
 from tpinn_torch.losses import Loss
 from tpinn_torch.models import Model, VariablesHandle
@@ -58,25 +68,57 @@ class OptimizationProblem:
         self.last_opt_state = None
         self.last_round_name: Optional[str] = None
         self.resume_opt_state = None
+        # the point mesh of the sharded losses (None: one process)
+        self.mesh = next((l.mesh for l in self.losses + self.losses_test
+                          if l.mesh is not None), None)
+        self._rank = sharding.mesh_rank(self.mesh)
+        self._world = sharding.mesh_size(self.mesh)
 
     @property
     def params(self) -> List[torch.Tensor]:
         return self.model.flat_params()
 
+    def _counts(self, loss: Loss) -> bool:
+        """Whether this rank adds ``loss`` to the mesh's sums: a sharded
+        loss on every rank, a replicated one on rank 0 alone."""
+        return loss.mesh is not None or self._rank == 0
+
+    def mesh_sum(self, *tensors: torch.Tensor):
+        """The tensors summed over the mesh in one collective (as they are
+        without a mesh)."""
+        return sharding.all_reduce_sum(self.mesh, *tensors)
+
     def loss_fn(self) -> torch.Tensor:
-        """Global training loss Σ weight_i · raw_i at the current params."""
+        """Global training loss Σ weight_i · raw_i at the current params;
+        under a mesh, this rank's share of it."""
         total = 0.0
         for loss in self.losses:
-            total = total + loss.weight * loss.raw_value()
+            if self._counts(loss):
+                total = total + loss.weight * loss.raw_value()
         return total
+
+    def loss_and_grads(self, tensors: Sequence[torch.Tensor]):
+        """(global loss, its gradients w.r.t. ``tensors``); a tensor the
+        loss does not read gets a zero gradient.  Under a mesh the ranks'
+        shares and gradients are summed in one collective."""
+        loss = self.loss_fn()
+        grads = torch.autograd.grad(loss, tensors, materialize_grads=True)
+        if self.mesh is None:
+            return loss, grads
+        loss, *grads = self.mesh_sum(loss.reshape(()), *grads)
+        return loss, grads
 
     @torch.no_grad()
     def eval_all(self):
         """(loss_global, {train raw}, {test raw}) as Python floats, read
-        from the device in one transfer."""
+        from the device in one transfer (summed over the mesh in one
+        collective before it)."""
         names = [l.name for l in self.losses] + [l.name for l in self.losses_test]
-        raws = [l.raw_value() for l in self.losses + self.losses_test]
-        values = torch.stack([torch.as_tensor(r) for r in raws]).tolist()
+        zero = torch.zeros((), dtype=self.model.dtype, device=self.model.device)
+        raws = [l.raw_value() if self._counts(l) else zero
+                for l in self.losses + self.losses_test]
+        values = torch.stack([torch.as_tensor(r) for r in raws])
+        values = self.mesh_sum(values)[0].tolist()
         n_train = len(self.losses)
         train = dict(zip(names[:n_train], values[:n_train]))
         test = dict(zip(names[n_train:], values[n_train:]))
@@ -135,31 +177,42 @@ class OptimizationProblem:
     def flat_value_and_grad(self, theta: torch.Tensor):
         """(loss, flat gradient) at ``theta`` as device tensors; the model
         keeps ``theta``.  A parameter the loss does not read gets a zero
-        gradient."""
+        gradient.  Under a mesh both are summed in one collective."""
         self.set_flat(theta)
-        order = self._vector_order()
-        loss = self.loss_fn()
-        grads = torch.autograd.grad(loss, order, materialize_grads=True)
+        loss, grads = self.loss_and_grads(self._vector_order())
         return loss.detach(), torch.cat([g.reshape(-1) for g in grads])
 
     def _residual_vector(self) -> torch.Tensor:
+        """Each counted loss's rows, scaled by sqrt(weight / N) for N its
+        global row count (the padded count under a mesh)."""
         parts = []
         for loss in self.losses:
+            if not self._counts(loss):
+                continue
             r = (loss.fn() / loss.normalization).reshape(-1)
-            parts.append(math.sqrt(loss.weight / r.numel()) * r)
+            n = r.numel() * (self._world if loss.mesh is not None else 1)
+            parts.append(math.sqrt(loss.weight / n) * r)
         return torch.cat(parts)
 
-    def residuals_and_grad(self, theta: torch.Tensor):
-        """(R, 2·JᵀR) at ``theta`` through one backward: the stacked
-        residual vector of ``residuals_at`` (||R||² is the global loss) and
-        the gradient of ||R||², both on the device; the model keeps
-        ``theta``."""
+    def residuals_and_grad(self, theta: torch.Tensor, r_ref=None):
+        """(R, 2·JᵀR, Δφ) at ``theta`` through one backward: the stacked
+        residual vector of ``residuals_at`` (||R||² is the global loss), the
+        gradient of ||R||², and Δφ = (R − r_ref)·(R + r_ref), the change of
+        the loss from where the residuals were ``r_ref`` (||R||² without
+        one), all on the device; the model keeps ``theta``.  Under a mesh R
+        is this rank's rows, and the gradient and Δφ are summed in one
+        collective."""
         self.set_flat(theta)
         order = self._vector_order()
         R = self._residual_vector()
         grads = torch.autograd.grad(R, order, grad_outputs=2.0 * R.detach(),
                                     materialize_grads=True)
-        return R.detach(), torch.cat([g.reshape(-1) for g in grads])
+        R = R.detach()
+        dphi = (torch.dot(R, R) if r_ref is None
+                else torch.dot(R - r_ref, R + r_ref))
+        g, dphi = self.mesh_sum(torch.cat([g.reshape(-1) for g in grads]),
+                                dphi)
+        return R, g, dphi
 
     def unravel(self, theta: torch.Tensor) -> List[dict]:
         """A flat vector in ``ravel_pytree`` order as the model's
@@ -206,16 +259,25 @@ class OptimizationProblem:
         (Jv,) = torch.autograd.grad(JTu, u, tangent)
         return R.detach(), Jv
 
-    def residuals_split(self, hi: torch.Tensor, lo: torch.Tensor):
-        """(r, dr, g) at the two-float point (hi, lo): r = R(hi), the
-        correction channel dr = J(hi)·lo kept apart from it, and
+    def residuals_split(self, hi: torch.Tensor, lo: torch.Tensor, ref=None):
+        """(r, dr, g, Δφ) at the two-float point (hi, lo): r = R(hi), the
+        correction channel dr = J(hi)·lo kept apart from it,
         g = 2·J(hi)ᵀ(r + dr), the gradient of ||R||² at hi + lo to first
-        order in lo."""
+        order in lo, and the loss change from where the channels were
+        ``ref`` = (r₀, dr₀), each channel differenced before they are added:
+        Δφ = ((r − r₀) + (dr − dr₀))·((r + r₀) + (dr + dr₀)) (||r||²
+        without one).  Under a mesh g and Δφ are summed in one collective."""
         R, th, JTu, u = self._linearize(hi)
         (dr,) = torch.autograd.grad(JTu, u, lo, retain_graph=True)
         r = R.detach()
         (g,) = torch.autograd.grad(R, th, 2.0 * (r + dr))
-        return r, dr, g
+        if ref is None:
+            dphi = torch.dot(r, r)
+        else:
+            r0, dr0 = ref
+            dphi = torch.dot((r - r0) + (dr - dr0), (r + r0) + (dr + dr0))
+        g, dphi = self.mesh_sum(g, dphi)
+        return r, dr, g, dphi
 
     def residuals_jacobian(self, theta: torch.Tensor,
                            chunk: int = JAC_CHUNK):
@@ -250,9 +312,7 @@ class OptimizationProblem:
         float64 host vector; the model keeps ``vec``.  One copy each way.
         A parameter the loss does not read gets a zero gradient."""
         self.set_vector(vec)
-        order = self._vector_order()
-        loss = self.loss_fn()
-        grads = torch.autograd.grad(loss, order, materialize_grads=True)
+        loss, grads = self.loss_and_grads(self._vector_order())
         both = torch.cat([loss.detach().reshape(1)]
                          + [g.reshape(-1) for g in grads])
         out = both.cpu().numpy().astype(np.float64)

@@ -1,4 +1,10 @@
-"""Where an Adam epoch of the Poiseuille slice spends its time on the card.
+"""Profiling hooks: a one-line trace of training rounds, a wall-clock
+section timer, and where an Adam epoch of the Poiseuille slice spends its
+time on the card.
+
+    with tpinn_torch.profiling.trace("/tmp/trace"):
+        ns.minimize(pb, "jax", "L-BFGS", 1000)
+    # -> open the .pt.trace.json in ui.perfetto.dev or TensorBoard
 
     python -m tpinn_torch.profiling [--epochs 20] [--out trace.json]
 
@@ -13,8 +19,72 @@ take the most device time.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import os
 import tempfile
 import time
+from typing import Dict
+
+
+@contextlib.contextmanager
+def trace(log_dir: str, create_perfetto_link: bool = False):
+    """``torch.profiler`` over the block (host activity, and the card's
+    where one exists), written at its end into ``log_dir`` as a
+    ``*.pt.trace.json`` Chrome trace, which Perfetto (ui.perfetto.dev) and
+    TensorBoard open: the counterpart of ``jax.profiler.trace``.  With
+    ``create_perfetto_link`` the file's path is printed.  Yields the
+    profiler."""
+    import torch
+    from torch.profiler import (ProfilerActivity, profile,
+                                tensorboard_trace_handler)
+
+    os.makedirs(log_dir, exist_ok=True)
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    before = set(os.listdir(log_dir))
+    with profile(activities=activities,
+                 on_trace_ready=tensorboard_trace_handler(log_dir)) as prof:
+        yield prof
+    if create_perfetto_link:
+        for name in sorted(set(os.listdir(log_dir)) - before):
+            print(f"trace: {os.path.join(log_dir, name)} (open in "
+                  "ui.perfetto.dev)")
+
+
+class SectionTimer:
+    """Accumulating named wall-clock sections.
+
+    With ``sync`` each section ends by waiting for the card's queued work,
+    so that device time is charged to the section that launched it.
+    """
+
+    def __init__(self, sync: bool = True):
+        self.totals: Dict[str, float] = {}
+        self.counts: Dict[str, int] = {}
+        self.sync = sync
+
+    @contextlib.contextmanager
+    def section(self, name: str):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            if self.sync:
+                import torch
+
+                if torch.cuda.is_available() and torch.cuda.is_initialized():
+                    torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            self.totals[name] = self.totals.get(name, 0.0) + dt
+            self.counts[name] = self.counts.get(name, 0) + 1
+
+    def report(self) -> str:
+        rows = sorted(self.totals.items(), key=lambda kv: -kv[1])
+        return "\n".join(
+            f"{name}: {total:.3f}s over {self.counts[name]} calls"
+            for name, total in rows
+        )
 
 
 def _union_us(intervals):
