@@ -248,7 +248,21 @@ exits non-zero:
    padding alone) against the unsharded kernels; kernels 1/2 over no
    valid row (zeros, no launch); (a) again on 1 rank over NCCL; the ms per
    Adam epoch and per second-round iteration of each (ranks sharing one
-   card: not a scaling measurement).
+   card: not a scaling measurement);
+37. the recipe runner (``tpinn_torch.recipes.run_case``) on cut-down
+   recipes, each stage a process on the card (the runner's default
+   device): Poisson Adam 100 + LM 3; Poiseuille Adam 10 + cosine Adam 10
+   -> dense BFGS 3 -> LM 2 x 2, every stage resuming stage 1's run folder
+   (every exit code 0, one run folder, the history's rounds running on
+   with no gap); the same Poiseuille recipe with targets stage 1 meets
+   stops there; each chained history held against the same stages called
+   in this process on the card (bit for bit expected, 1e-8 over every log
+   failing) and on the CPU (the LM stages on the device ladder forced
+   there; every log at 1e-8, the final loss at 5 %); the in-process
+   chains' kernel launches (kernels 1/2 in Poiseuille's Adam and BFGS
+   stages, none in Poisson's LM route); one checkpoint of the dense BFGS
+   carry (2,307 parameters) timed, as the callbacks write it every 100
+   iterations.
 
 The line before the last is the kernels' JSON record (each kernel's
 launches on every path that runs it, ``launches`` being its slice's main
@@ -351,6 +365,8 @@ SHARD_RANKS = 3
 SHARD_ADAM = 100
 SHARD_ITERS = 20
 SHARD_LM_ITERS = 5
+# the recipe runner (phase 37): writes of the dense BFGS checkpoint timed
+CHECKPOINT_WRITES = 5
 
 
 def phase(name):
@@ -845,6 +861,168 @@ def sharded_phase(work_dir, dev):
         raise AssertionError("the NCCL rank disagrees")
     out["nccl"] = {"dev": d1, "ms": ms1}
     return totals, out
+
+
+def recipes_phase(work_dir):
+    """Phase 37: ``tpinn_torch.recipes.run_case`` on the cut-down recipes,
+    each stage a process on the card (the runner's default device), the
+    three chains in threads while the same stages run here on the card
+    (bit for bit expected); then those stages on the CPU (the LM stages on
+    the device ladder, the card's default solver, forced there once no
+    stage process is left to inherit it); the cost of one checkpoint of
+    the dense BFGS carry.  Returns (the kernels' launches in the card's
+    in-process chains, the record)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from tpinn_torch import recipes
+    from tpinn_torch.cases import poiseuille_flow, poisson
+    from tpinn_torch.history import History
+    from tpinn_torch.kernels import mlp_bundle as mb
+    from tpinn_torch.utils import CheckpointCallback
+
+    root = os.path.join(work_dir, "recipes")
+    q = recipes.QUICK
+    never, met_at_once = recipes.quick_specs(0.0), recipes.quick_specs(1e9)
+    specs = {"poisson": never[0], "poiseuille": never[1],
+             "early": met_at_once[1]}
+
+    def chain(key):
+        name = "poisson" if key == "poisson" else "poiseuille"
+        log_dir = os.path.join(root, key)
+        met = recipes.run_case(name, specs[key], log_dir=log_dir,
+                               base_dir=os.path.join(root, key, "runs"))
+        return met, recipes.read_summary(name, log_dir)
+
+    # the same stages in this process, on the card and on the CPU
+    def in_process(device, base):
+        p_pb = poisson.main(q["poisson_lm"], out_dir=base,
+                            second_round="lm", device=device)[0]
+        p_launches = dict(mb.LAUNCHES)
+        mb.reset_launch_counts()
+        drv = poiseuille_flow.main(base, adam_epochs=q["adam"],
+                                   second_round="adam", epochs=q["cosine"],
+                                   device=device, seed=0)
+        stages = [drv]
+        for second_round, n in [("jax-bfgs", q["bfgs"])] + [
+                ("lm", q["lm"])] * q["lm_repeat"]:
+            stages.append(poiseuille_flow.main(
+                base, second_round=second_round, epochs=n, device=device,
+                seed=0, resume_from=stages[-1].folder))
+        return p_pb, p_launches, stages, dict(mb.LAUNCHES)
+
+    runs = {}
+    with ThreadPoolExecutor(len(specs)) as pool:
+        futures = {key: pool.submit(chain, key) for key in specs}
+        mb.reset_launch_counts()
+        runs["cuda"] = in_process("cuda", os.path.join(root, "cuda"))
+        reports = {key: f.result() for key, f in futures.items()}
+    os.environ["TPINN_LM_SOLVER"] = "device"
+    try:
+        mb.reset_launch_counts()
+        runs["cpu"] = in_process("cpu", os.path.join(root, "cpu"))
+    finally:
+        os.environ.pop("TPINN_LM_SOLVER", None)
+    for key, (met, report) in reports.items():
+        if report["failed"]:
+            with open(report["failed"]) as f:
+                print(f.read()[-3000:])
+            raise AssertionError(f"recipe stage failed: {report['failed']}")
+        print(f"  {key}: met {met}, stages "
+              + ", ".join(f"{s['tag']} {s['wall_s']:.2f} s"
+                          for s in report["stages"]))
+    (p_met, p_rep), (z_met, z_rep), (e_met, e_rep) = reports.values()
+    folder = z_rep["folder"]
+    tags = [s["tag"] for s in z_rep["stages"]]
+    resumed = {s["args"][s["args"].index("--resume") + 1]
+               for s in z_rep["stages"][1:]}
+    rounds = [r["name"] for r in z_rep["history"]["rounds"]]
+    if (p_met or z_met or not e_met or p_rep["stopped_at"]
+            or [s["tag"] for s in p_rep["stages"]] != ["stage1_lm"]
+            or tags != ["stage1_adam", "stage2_bfgs"] + [
+                f"stage3_lm_r{r + 1}" for r in range(q["lm_repeat"])]
+            or resumed != {folder}
+            or os.listdir(os.path.dirname(folder)) != ["Test_Case_#001"]
+            or not z_rep["history"]["runs_on"]
+            or rounds != ["keras_Adam"] * 2 + ["jax_BFGS"]
+            + ["jax_LM"] * q["lm_repeat"]
+            or e_rep["stopped_at"] != "stage1_adam"
+            or len(e_rep["stages"]) != 1):
+        raise AssertionError(f"recipe runner: {tags}, {rounds}, {resumed}")
+    chained = {"poisson": os.path.join(root, "poisson", "runs", "poisson",
+                                       "Images", "Poisson_history_loss.json"),
+               "poiseuille": os.path.join(folder, "History_Loss.json")}
+    early = recipes.history_without_walls(
+        os.path.join(e_rep["folder"], "History_Loss.json"))
+    full = recipes.history_without_walls(chained["poiseuille"])
+    n_early = len(early["log"]["iter"])
+    if early["log"]["loss_global"] != full["log"]["loss_global"][:n_early]:
+        raise AssertionError("the early-stopped stage 1 left the chain's")
+
+    p_gpu, p_launches, z_gpu, z_launches = runs["cuda"]
+    p_cpu, _, z_cpu, _ = runs["cpu"]
+    refs = {"poisson": {"cuda": os.path.join(root, "cuda", "Images",
+                                             "Poisson_history_loss.json"),
+                        "cpu": os.path.join(root, "cpu", "Images",
+                                            "Poisson_history_loss.json")},
+            "poiseuille": {d: os.path.join(runs[d][2][-1].folder,
+                                           "History_Loss.json")
+                           for d in ("cuda", "cpu")}}
+    same, devs = {}, {}
+    for case, path in chained.items():
+        same[case] = (recipes.history_without_walls(path)
+                      == recipes.history_without_walls(refs[case]["cuda"]))
+        h, h_cpu = History.load(path), History.load(refs[case]["cpu"])
+        h_gpu = History.load(refs[case]["cuda"])
+        every = list(range(len(h.iters)))
+        devs[case] = {"card": rel_dev(h_gpu, h, every),
+                      "cpu": rel_dev(h_cpu, h, every),
+                      "cpu_final": abs(h.loss_global[-1]
+                                       / h_cpu.loss_global[-1] - 1.0)}
+        print(f"  {case}: chained history against this process's card run "
+              f"bit-identical {same[case]} (every log "
+              f"{devs[case]['card']:.2e}), against the CPU "
+              f"{devs[case]['cpu']:.2e}, final loss "
+              f"{devs[case]['cpu_final']:.2e} apart")
+    bfgs = z_gpu[1].pb
+    evaluations = bfgs.bfgs_counts["evaluations"]
+    print(f"  launches in this process: Poisson {p_launches}; Poiseuille "
+          f"{z_launches} (Adam {q['adam']} + cosine {q['cosine']} + "
+          f"{evaluations} BFGS evaluations)")
+    if (any(d["card"] > HISTORY_BAR or d["cpu"] > HISTORY_BAR
+            or d["cpu_final"] > FINAL_LOSS_BAR for d in devs.values())
+            or any(p_launches.values())
+            or z_launches["ns_residual_bwd"]
+            < q["adam"] + q["cosine"] + evaluations
+            or z_launches["ns_residual_fwd"] < 1):
+        raise AssertionError(f"recipe chains disagree: {devs}, launches "
+                             f"{p_launches} {z_launches}")
+
+    # one checkpoint of the dense BFGS carry, as the callbacks write it
+    # every 100 iterations
+    path = os.path.join(root, "checkpoint.pkl")
+    callback = CheckpointCallback(path)
+    writes = []
+    for _ in range(CHECKPOINT_WRITES):
+        t0 = time.perf_counter()
+        callback(bfgs, 0, force=True)
+        writes.append(time.perf_counter() - t0)
+    ckpt_ms = 1e3 * float(np.median(writes))
+    ckpt_mb = os.path.getsize(path) / 1e6
+    n_params = sum(p[k].numel() for p in bfgs.model.params
+                   for k in ("kernel", "bias"))
+    print(f"  checkpoint of the dense BFGS carry ({n_params} parameters): "
+          f"{ckpt_mb:.2f} MB, {ckpt_ms:.2f} ms per write (median of "
+          f"{CHECKPOINT_WRITES}); 50 writes per 5,000 iterations "
+          f"{50 * ckpt_ms / 1e3:.2f} s")
+    launches = {k: p_launches.get(k, 0) + z_launches.get(k, 0)
+                for k in mb.LAUNCHES}
+    return launches, {
+        "stages_s": {k: {s["tag"]: s["wall_s"] for s in r["stages"]}
+                     for k, (_, r) in reports.items()},
+        "bit_identical": same, "devs": devs, "launches": launches,
+        "checkpoint_mb": ckpt_mb, "checkpoint_ms": ckpt_ms}
 
 
 def main():
@@ -3279,6 +3457,16 @@ def main():
                f"LM {SHARD_LM_ITERS} (opt-in), against one process"):
         shard_launches, record["sharded"] = sharded_phase(work.name, dev)
 
+    from tpinn_torch.recipes import QUICK as quick
+
+    with phase(f"37 the recipe runner on the card: Poisson Adam 100 + LM "
+               f"{quick['poisson_lm']}; Poiseuille Adam {quick['adam']} + "
+               f"cosine Adam {quick['cosine']} -> dense BFGS "
+               f"{quick['bfgs']} -> LM {quick['lm']} x {quick['lm_repeat']}, "
+               f"each stage a process, against the same stages in this "
+               f"process"):
+        recipe_launches, record["recipes"] = recipes_phase(work.name)
+
     # launches on each path that runs the kernel, each read around its run;
     # "launches" is the count on the main path of the kernel's slice
     paths = {"4 Poiseuille Adam": launches,
@@ -3297,7 +3485,8 @@ def main():
              "30 Poisson LM": plm["cuda"][2],
              "31 Coronary LM ladder (opt-in)": lad_launches,
              "31 Poiseuille LM ladder (opt-in)": pz_launches,
-             "36 sharded": shard_launches}
+             "36 sharded": shard_launches,
+             "37 recipes": recipe_launches}
 
     def kernel_row(name, key, route_src, replaces, main, row, n):
         d_ms, per_call, _ = dev_t[(name, n)]
