@@ -59,7 +59,7 @@ exits non-zero:
 10. times of kernel 5 and its plain version at 33, 100, 1,000, 3,000,
    262,144 and 1,048,576 points, float32 and float64, as in phase 5, with
    the plan's tile and grid;
-11. the slice: the Poiseuille Levenberg–Marquardt round (10 iterations
+11. the slice: the Poiseuille Levenberg–Marquardt round (5 iterations
    after a 0-epoch Adam round, float64, the reference options) through
    tpinn_torch.cases.poiseuille_flow.main with TPINN_USE_PALLAS=1, the
    launch counts read around it (kernel 5 launches, kernels 1-4 do not),
@@ -171,7 +171,7 @@ exits non-zero:
    ``press_mode`` Mean and the save / load round trip (bit-identical
    outputs), and tpinn_torch.cases.cavity_unsteady_old at its defaults on
    phase 22's series (the regular-grid csv derived from it, timed), each
-   Adam 100 then the host scipy BFGS cut to 10 iterations, card against
+   Adam 100 then the host scipy BFGS cut to 5 iterations, card against
    CPU at phase 26's bars;
 28. the coronary oracle on the card's host: the mesh and boundary points
    the package carries (their SHA-256 held to the port's constants, 10,833
@@ -209,7 +209,7 @@ exits non-zero:
    eigh (the loss falls, the final loss within 5 %); its iteration split
    (residuals, Gram, power iteration, and per rung the Cholesky, solve and
    candidate evaluation), rungs per iteration and ms per iteration beside
-   the host eigh's; phase 11's Poiseuille LM 10 on the ladder against its
+   the host eigh's; phase 11's Poiseuille LM 5 on the ladder against its
    host eigh at rtol 1e-3 (tpinn's own bar);
 32. LM resume on the card: Poiseuille LM 3, then its run folder resumed
    by LM 2, equal to LM 5 straight bit for bit (the carry θ and the last
@@ -262,7 +262,27 @@ exits non-zero:
    chains' kernel launches (kernels 1/2 in Poiseuille's Adam and BFGS
    stages, none in Poisson's LM route); one checkpoint of the dense BFGS
    carry (2,307 parameters) timed, as the callbacks write it every 100
-   iterations.
+   iterations;
+38. the entry point (``tpinn_torch.entry``): the flagship forward step at
+   4,096 points in float32 and float64, with the opt-in off (the closed
+   form) and on (kernel 5, one launch per call), the two routes at 1e-5 /
+   1e-12 relative, both equal to kernel 2's forward MSEs under the weights
+   (10, 1, 1) on the same parameters and points, and to the CPU's plain
+   version; each route's call ms (CUDA events); then ``dryrun_multichip(3)``
+   on three ranks sharing the card (gloo; one rank per card over NCCL
+   where the host has three), its three lines, kernels 1/2 launched on
+   every rank (path 4's Adam needs the bundle's gradient, so the opt-in
+   stays off there, as in the JAX package);
+39. the scripts' counterparts cut down: ``tpinn_torch.campaign`` on Poisson
+   and Poiseuille_Flow at epochs scale 0.001 (Adam 100 + L-BFGS 10 each),
+   each case's history bit for bit against the same ``main`` call in this
+   process; ``polish_scan`` with its two default variants of 3 LM
+   iterations (under TPINN_USE_PALLAS=1: kernel 5) on phase 22's run
+   folder, the first against the case's own resume; ``lm_ab`` with 3
+   iterations per run on phase 32's ladder run folder, each solver's runs
+   against two resumes in this process; ``diagnostics`` floor and mu-scan
+   on phase 29's coronary run folder (the loss against its history's last,
+   df_pred against df_split at the smallest μ).
 
 The line before the last is the kernels' JSON record (each kernel's
 launches on every path that runs it, ``launches`` being its slice's main
@@ -301,7 +321,9 @@ FINAL_LOSS_BAR = 0.05
 # kernel 5 at the coronary LM route's shapes too: n = 33 (each outflow) and
 # 3,000 (the PDE batch)
 BUNDLE_SIZES = (33, 100, 1000, 3000, 262_144, 1_048_576)
-LM_ITERS = 10
+# phase 11's LM round (cut from 10 iterations to keep the smoke's time
+# with phases 38-39)
+LM_ITERS = 5
 HISTORY_BAR = 1e-8
 # the dense BFGS round (phase 15): 40 iterations on the card and the CPU, the
 # history held at the bar over iterations 0-20 and by its final global loss
@@ -334,8 +356,8 @@ PROBE_OUTER = 10
 STEADY_T_END = 0.5
 # Cavity_Steady's default "scipy" round (phase 26), held like phase 20's
 STEADY_ITERS = 20
-# the old-style cavity scripts' second round (phase 27)
-OLD_ITERS = 10
+# the old-style cavity scripts' second round (phase 27; cut from 10)
+OLD_ITERS = 5
 # the coronary default route's dense BFGS round (phase 29), held like
 # phase 20's; the LM resume of its run and the Poisson LM round (phase 30)
 CORONARY_ITERS = 20
@@ -367,6 +389,10 @@ SHARD_ITERS = 20
 SHARD_LM_ITERS = 5
 # the recipe runner (phase 37): writes of the dense BFGS checkpoint timed
 CHECKPOINT_WRITES = 5
+# the coronary mu-scan (phase 39): the float64 split change against the
+# model's prediction at the smallest μ, whose step is the largest; measured
+# 1.0198 on phase 29's folder in three runs on the H100 (PERF.md section 5)
+MU_SCAN_RATIO_BAR = 0.05
 
 
 def phase(name):
@@ -1023,6 +1049,247 @@ def recipes_phase(work_dir):
                      for k, (_, r) in reports.items()},
         "bit_identical": same, "devs": devs, "launches": launches,
         "checkpoint_mb": ckpt_mb, "checkpoint_ms": ckpt_ms}
+
+
+def entry_phase(dev):
+    """Phase 38: the flagship forward step on both routes and both dtypes,
+    held against kernel 2 and the CPU, timed; then the dry run.  Returns
+    (the kernels' launches: the entry's under the opt-in and the ranks',
+    the record)."""
+    import numpy as np
+    import torch
+
+    from tpinn_torch import entry
+    from tpinn_torch.kernels import mlp_bundle as mb
+
+    bars = {torch.float32: 1e-5, torch.float64: 1e-12}
+    launches = {k: 0 for k in mb.LAUNCHES}
+    rec = {}
+    for dtype, bar in bars.items():
+        name = str(dtype).split(".")[-1]
+        fn, (params, x) = entry.entry("cuda", dtype)
+        _, norm, physics = entry._flagship(dtype, "cpu")
+        got = {}
+        for route, opt_in in (("closed", "0"), ("kernel5", "1")):
+            os.environ["TPINN_USE_PALLAS"] = opt_in
+            try:
+                with torch.no_grad():
+                    mb.reset_launch_counts()
+                    got[route] = float(fn(params, x))
+                    torch.cuda.synchronize()
+                    used = dict(mb.LAUNCHES)
+                    ms = cuda_ms(lambda: fn(params, x), inner=20)
+            finally:
+                os.environ.pop("TPINN_USE_PALLAS", None)
+            if used["taylor_bundle"] != (1 if opt_in == "1" else 0):
+                raise AssertionError(f"entry {name} {route}: {used}")
+            for k, v in used.items():
+                launches[k] += v
+            rec[f"{name} {route}"] = {"loss": got[route], "ms": ms}
+        with torch.no_grad():
+            m2 = mb.ns_residual_fwd(params, x, physics, norm)
+            k2 = float(10.0 * m2[0] + m2[1] + m2[2])
+            cpu_fn, (_, cx) = entry.entry("cpu", dtype)
+            cpu = float(cpu_fn([{k: p[k].cpu() for k in p} for p in params],
+                               cx))
+        devs = {"routes": abs(got["kernel5"] / got["closed"] - 1.0),
+                "kernel2": abs(k2 / got["closed"] - 1.0),
+                "cpu": abs(cpu / got["closed"] - 1.0)}
+        rec[f"{name} devs"] = devs
+        print(f"  entry {name}: loss {got['closed']!r} (closed form, "
+              f"{rec[name + ' closed']['ms']:.4f} ms per call), "
+              f"{got['kernel5']!r} (kernel 5, "
+              f"{rec[name + ' kernel5']['ms']:.4f} ms); kernel 2's weighted "
+              f"MSEs {k2!r}; the CPU {cpu!r}; relative: routes "
+              f"{devs['routes']:.2e}, kernel 2 {devs['kernel2']:.2e}, CPU "
+              f"{devs['cpu']:.2e} (bar {bar:.0e})")
+        if max(devs.values()) > bar or not np.isfinite(got["closed"]):
+            raise AssertionError(f"entry {name} disagrees: {devs}")
+    t0 = time.perf_counter()
+    out = entry.dryrun_multichip(3, dev)
+    rec["dryrun_s"] = time.perf_counter() - t0
+    rec["dryrun"] = {"lines": out["lines"], "backend": out["backend"],
+                     "steps": [{k: v for k, v in st.items() if k != "theta"}
+                               for st in out["steps"]],
+                     "paths": {p: {k: v for k, v in r.items()
+                                   if k != "launches"}
+                               for p, r in out["paths"].items()}}
+    per_rank = [st["launches"] for st in out["steps"]] + [
+        lc for r in out["paths"].values() for rank in r["launches"]
+        for lc in rank]
+    for lc in per_rank:
+        for k, v in lc.items():
+            launches[k] += v
+    print(f"  dry run: {out['backend']} ranks on {out['rank_device']}, "
+          f"{rec['dryrun_s']:.2f} s; launches (entry and every rank) "
+          f"{launches}")
+    if launches["ns_residual_bwd"] < 3 or launches["ns_residual_fwd"] < 3:
+        raise AssertionError("the dry run's ranks missed kernels 1/2")
+    return launches, rec
+
+
+def scripts_phase(work_dir, dev):
+    """Phase 39: the campaign, the polish scan, the LM A/B and the coronary
+    diagnostics cut down, on the run folders of phases 22, 29 and 32.
+    Returns (the kernels' launches in this process, the record)."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from tpinn_torch import campaign, diagnostics, lm_ab, polish_scan
+    from tpinn_torch.cases import cavity_unsteady, poiseuille_flow, poisson
+    from tpinn_torch.history import History
+    from tpinn_torch.kernels import mlp_bundle as mb
+    from tpinn_torch.recipes import history_without_walls
+
+    root = os.path.join(work_dir, "scripts")
+    rec, launches = {}, {k: 0 for k in mb.LAUNCHES}
+
+    def count():
+        for k, v in mb.LAUNCHES.items():
+            launches[k] += v
+        mb.reset_launch_counts()
+
+    # the campaign: two cases, then the same main calls here
+    t0 = time.perf_counter()
+    mb.reset_launch_counts()
+    rc = campaign.main(["--only", "Poisson,Poiseuille_Flow", "--epochs-scale",
+                        "0.001", "--second-round", "jax", "--device", "cuda",
+                        "--base-dir", os.path.join(root, "campaign"),
+                        "--out", os.path.join(root, "RESULTS.md")])
+    camp_launches = dict(mb.LAUNCHES)
+    count()
+    rec["campaign_s"] = time.perf_counter() - t0
+    ref = os.path.join(root, "campaign_ref")
+    poisson.main(10, out_dir=os.path.join(ref, "Poisson"),
+                 second_round="jax", device="cuda")
+    poiseuille_flow.main(os.path.join(ref, "Poiseuille_Flow"),
+                         second_round="jax", epochs=10, device="cuda")
+    mb.reset_launch_counts()
+    same = {}
+    for name, rel_path in (("Poisson", "Images/Poisson_history_loss.json"),
+                           ("Poiseuille_Flow",
+                            "Test_Case_#001/History_Loss.json")):
+        same[name] = (history_without_walls(
+            os.path.join(root, "campaign", name, rel_path))
+            == history_without_walls(os.path.join(ref, name, rel_path)))
+    with open(os.path.join(root, "RESULTS.md")) as f:
+        table = f.read()
+    print(table, end="")
+    print(f"  campaign: exit {rc}, {rec['campaign_s']:.2f} s, launches "
+          f"{camp_launches}; bit-identical to the cases' main: {same}")
+    if (rc != 0 or not all(same.values()) or "ERROR" in table
+            or not all(camp_launches[k] for k in camp_launches
+                       if k != "taylor_bundle")):
+        raise AssertionError("the campaign failed")
+    rec["campaign"] = {"launches": camp_launches, "bit_identical": same}
+
+    # the polish scan on phase 22's run folder, kernel 5 under the opt-in
+    folder = os.path.join(work_dir, "cavity_unsteady_cuda", "Test_Case_#001")
+    data = os.path.join(work_dir, "unsteady")
+    os.environ["TPINN_USE_PALLAS"] = "1"
+    try:
+        t0 = time.perf_counter()
+        best = {tag: polish_scan.run_variant(
+            folder, data, tag, polish_scan.VARIANTS[tag], 3,
+            os.path.join(root, "polish"), device="cuda")
+            for tag in ("pde10", "pde100")}
+        polish_launches = dict(mb.LAUNCHES)
+        count()
+        rec["polish_s"] = time.perf_counter() - t0
+        direct = os.path.join(root, "polish_ref")
+        copy = os.path.join(direct, "Test_Case_#001")
+        shutil.copytree(folder, copy)
+        cavity_unsteady.main(epochs=3, base_dir=direct, second_round="lm",
+                             resume_from=copy, pde_weights="1e2,1e1,1e1",
+                             device="cuda", exact_data=cavity_unsteady
+                             .load_exact(data, device="cuda"))
+        mb.reset_launch_counts()
+    finally:
+        os.environ.pop("TPINN_USE_PALLAS", None)
+    h_scan = History.load(os.path.join(
+        root, "polish", "cavun_polish_pde10", "Test_Case_#001",
+        "History_Loss.json"))
+    h_ref = History.load(os.path.join(copy, "History_Loss.json"))
+    every = list(range(len(h_ref.iters)))
+    d_polish = rel_dev(h_ref, h_scan, every)
+    same_polish = (history_without_walls(os.path.join(
+        root, "polish", "cavun_polish_pde10", "Test_Case_#001",
+        "History_Loss.json")) == history_without_walls(
+        os.path.join(copy, "History_Loss.json")))
+    print(f"  polish scan: {rec['polish_s']:.2f} s, launches "
+          f"{polish_launches}; best rows {best}; pde10 against the case's "
+          f"resume: bit-identical {same_polish} (every log {d_polish:.2e})")
+    if (polish_launches["taylor_bundle"] < 3 or d_polish > HISTORY_BAR
+            or h_scan.round_names[-1] != "jax_LM"):
+        raise AssertionError("the polish scan failed")
+    rec["polish"] = {"best": best, "launches": polish_launches,
+                     "dev": d_polish, "bit_identical": same_polish}
+
+    # the LM A/B on phase 32's ladder run folder, then its resumes here
+    ab_folder = os.path.join(work_dir, "lm_resume_device", "a",
+                             "Test_Case_#001")
+    t0 = time.perf_counter()
+    ab, ab_same = {}, {}
+    for solver in ("host", "device"):
+        ab[solver] = lm_ab.run(solver, ab_folder, iters=3,
+                               work_dir=root, device="cuda")
+        copy = os.path.join(root, f"ab_ref_{solver}", "Test_Case_#001")
+        shutil.copytree(ab_folder, copy)
+        os.environ["TPINN_LM_SOLVER"] = solver
+        try:
+            for _ in range(2):
+                poiseuille_flow.main(os.path.dirname(copy),
+                                     second_round="lm", epochs=3,
+                                     device="cuda", resume_from=copy)
+        finally:
+            os.environ.pop("TPINN_LM_SOLVER", None)
+        h_ab = History.load(os.path.join(ab[solver]["folder"],
+                                         "History_Loss.json"))
+        h_in = History.load(os.path.join(copy, "History_Loss.json"))
+        ab_same[solver] = (rel_dev(h_in, h_ab, list(range(len(h_in.iters)))),
+                           history_without_walls(os.path.join(
+                               ab[solver]["folder"], "History_Loss.json"))
+                           == history_without_walls(os.path.join(
+                               copy, "History_Loss.json")))
+    # the A/B's runs are processes of their own; the resumes here compare
+    mb.reset_launch_counts()
+    rec["lm_ab_s"] = time.perf_counter() - t0
+    warm = {s: ab[s][f"{s}_run2"]["s_per_iter"] for s in ab}
+    print(f"  LM A/B: {rec['lm_ab_s']:.2f} s; warm s per iteration {warm}; "
+          f"against two resumes here (every log, bit-identical) {ab_same}")
+    if any(d > HISTORY_BAR for d, _ in ab_same.values()):
+        raise AssertionError("the LM A/B disagrees with its resumes")
+    rec["lm_ab"] = {"warm_s_per_iter": warm, "vs_resumes": ab_same}
+
+    # the coronary diagnostics on phase 29's run folder
+    co_folder = os.path.join(work_dir, "coronary_cuda", "Test_Case_#001")
+    t0 = time.perf_counter()
+    pb = diagnostics.resumed_problem(co_folder, device="cuda")
+    fl = diagnostics.floor(pb)
+    scan = diagnostics.mu_scan(pb)
+    count()
+    rec["diagnostics_s"] = time.perf_counter() - t0
+    last = History.load(os.path.join(co_folder, "History_Loss.json"))
+    d_loss = abs(fl["loss"] / last.loss_global[-1] - 1.0)
+    first = scan["rows"][0]
+    print(f"  diagnostics: {rec['diagnostics_s']:.2f} s; the loss against "
+          f"the folder's last logged {d_loss:.2e}; at mu {first['mu']:.0e}: "
+          f"df_pred {first['df_pred']:.6e}, df_split {first['df_split']:.6e}"
+          f" (ratio {first['ratio']:.4f}, bar |ratio - 1| <= "
+          f"{MU_SCAN_RATIO_BAR})")
+    if (fl["dtype"] != "torch.float64" or d_loss > 1e-10
+            or not np.isfinite([r["df_pred"] for r in scan["rows"]]).all()
+            or not np.isfinite([r["df_split"] for r in scan["rows"]]).all()
+            or abs(first["ratio"] - 1.0) > MU_SCAN_RATIO_BAR):
+        raise AssertionError("the coronary diagnostics failed")
+    rec["diagnostics"] = {"loss": fl["loss"], "loss_dev": d_loss,
+                          "grad_norm": fl["grad_norm"],
+                          "w_max": float(scan["eigenvalues"][-1]),
+                          "rows": scan["rows"]}
+    torch.cuda.synchronize()
+    return launches, rec
 
 
 def main():
@@ -2362,18 +2629,20 @@ def main():
 
         cav = {}
         for device in ("cuda", "cpu"):
-            with tempfile.TemporaryDirectory() as td:
-                mb.reset_launch_counts()
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                drv = cavity_unsteady.main(
-                    epochs=CAVITY_ITERS, base_dir=td, second_round="scipy",
-                    seed=0, device=device, adam_epochs=100,
-                    exact_data=exact, dtype=torch.float64)
-                torch.cuda.synchronize()
-                cav[device] = (drv, dict(mb.LAUNCHES),
-                               time.perf_counter() - t0,
-                               sorted(os.listdir(drv.folder)))
+            # the run folders stay in the work folder (phase 39 polishes
+            # the card's)
+            base = os.path.join(work.name, f"cavity_unsteady_{device}")
+            mb.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            drv = cavity_unsteady.main(
+                epochs=CAVITY_ITERS, base_dir=base, second_round="scipy",
+                seed=0, device=device, adam_epochs=100,
+                exact_data=exact, dtype=torch.float64)
+            torch.cuda.synchronize()
+            cav[device] = (drv, dict(mb.LAUNCHES),
+                           time.perf_counter() - t0,
+                           sorted(os.listdir(drv.folder)))
         (cv_gpu, cav_launches, cv_wall, cv_files), (cv_cpu, _, cv_cpu_wall,
                                                     _) = cav["cuda"], cav["cpu"]
         hv, hvr = cv_gpu.pb.history, cv_cpu.pb.history
@@ -3160,14 +3429,16 @@ def main():
         resume_devs = {}
         for solver in ("host", "device"):
             os.environ["TPINN_LM_SOLVER"] = solver
+            # the run folders stay in the work folder (phase 39's A/B
+            # resumes the ladder's)
+            td = os.path.join(work.name, f"lm_resume_{solver}")
             try:
-                with tempfile.TemporaryDirectory() as td:
-                    lm_case = lambda base, n, **kw: poiseuille_flow.main(
-                        os.path.join(td, base), adam_epochs=0,
-                        second_round="lm", epochs=n, device="cuda", **kw)
-                    part1 = lm_case("a", 3)
-                    part2 = lm_case("a", 2, resume_from=part1.folder)
-                    whole = lm_case("b", 5)
+                lm_case = lambda base, n, **kw: poiseuille_flow.main(
+                    os.path.join(td, base), adam_epochs=0,
+                    second_round="lm", epochs=n, device="cuda", **kw)
+                part1 = lm_case("a", 3)
+                part2 = lm_case("a", 2, resume_from=part1.folder)
+                whole = lm_case("b", 5)
             finally:
                 os.environ.pop("TPINN_LM_SOLVER", None)
             h2, hw = part2.pb.history, whole.pb.history
@@ -3467,6 +3738,14 @@ def main():
                f"process"):
         recipe_launches, record["recipes"] = recipes_phase(work.name)
 
+    with phase("38 the entry point: the flagship forward step at 4,096 "
+               "points, both routes and dtypes; dryrun_multichip(3)"):
+        entry_launches, record["entry"] = entry_phase(dev)
+
+    with phase("39 the scripts cut down: the campaign, the polish scan, the "
+               "LM A/B, the coronary diagnostics"):
+        script_launches, record["scripts"] = scripts_phase(work.name, dev)
+
     # launches on each path that runs the kernel, each read around its run;
     # "launches" is the count on the main path of the kernel's slice
     paths = {"4 Poiseuille Adam": launches,
@@ -3486,7 +3765,9 @@ def main():
              "31 Coronary LM ladder (opt-in)": lad_launches,
              "31 Poiseuille LM ladder (opt-in)": pz_launches,
              "36 sharded": shard_launches,
-             "37 recipes": recipe_launches}
+             "37 recipes": recipe_launches,
+             "38 entry and dry run": entry_launches,
+             "39 scripts": script_launches}
 
     def kernel_row(name, key, route_src, replaces, main, row, n):
         d_ms, per_call, _ = dev_t[(name, n)]

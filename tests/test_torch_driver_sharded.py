@@ -30,14 +30,28 @@ and initial θ through ``from_arrays``, every rank the full arrays.
   Neumann outflow through LM 2 (the traction's point residuals with their
   mask-scale rows), at the same bars.
 
+* the dry run's paths 2-4 (``tpinn_torch.entry.dryrun_jobs``) at 3 and 8
+  ranks against __graft_entry__.py's: path 2 (one Adam step of the sharded
+  fused objective on a batch of 64·n − 5 rows, the one-pass objective) on
+  the JAX package's flagship θ0, its masked sharded loss against the JAX
+  package's unsharded kernel on the true rows at the step's bars (float32
+  1e-6, float64 1e-10); paths 3 (Adam 15 + L-BFGS 15, n_pde 64) and 4
+  (Adam 10 + LM 4 on the fast Gram, n_pde 70) from the JAX driver's draws
+  on the dry run's case, its hidden layers 8 wide, against its unsharded
+  histories, Adam 1e-10, the second rounds 1e-8.
+
 The ranks run ``tpinn_torch.sharded_runs.run_jobs`` (no JAX); tpinn runs in
 this process.
 """
 
+import dataclasses
 import json
 import os
+import sys
+from pathlib import Path
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -50,9 +64,14 @@ from tests.test_torch_artifacts import ARTIFACTS
 from tpinn import sharding as jsh
 from tpinn.config import SimulationOptions as JaxOptions
 from tpinn.driver import StandardNSDriver as JaxDriver
-from tpinn_torch import sharded_runs, sharding
+from tpinn.pallas.mlp_bundle import ns_residual_mse as jax_ns_mse
+from tpinn_torch import entry, sharded_runs, sharding
 from tpinn_torch.history import History
 from tpinn_torch.pipeline import NSPhysics
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+import __graft_entry__ as graft  # noqa: E402
 
 torch.set_num_threads(1)
 
@@ -68,6 +87,10 @@ CASE = "tpinn_torch.cases.poiseuille_flow"
 # (the boundary values come with the arrays)
 SPEC = {"grid_shape": (20, 10), "neumann": {}}
 TIMEOUT, DEADLINE = 60.0, 300.0
+# the dry run's paths 3-4 on a 2-8-8-8-3 net here (195 parameters: each
+# rank's LM factors the whole damped system); tests/test_torch_entry.py
+# runs them at the dry run's own widths
+DRYRUN_WIDTH = 8
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -123,10 +146,11 @@ ROUND_JOBS = {
 
 
 @pytest.fixture(scope="module")
-def ref():
+def ref(tmp_path_factory):
     """tpinn's data, its evaluations at θ0 (unsharded and on 3 and 8
     devices) and its unsharded histories."""
-    out = {"arrays": {}, "eval": {}, "hist": {}}
+    out = {"arrays": {}, "eval": {}, "hist": {}, "step": {},
+           "base": str(tmp_path_factory.mktemp("dryrun"))}
     for opts in OPTS:
         jd = _jax_driver(opts)
         out["arrays"][opts] = lm._arrays(jd)
@@ -143,6 +167,31 @@ def ref():
         out["hist"][name] = _jax_rounds(pb, rounds)
         if name == "lm":
             assert pb.lm_used_fast_gram
+    # the dry run's paths 3-4 (__graft_entry__.py) unsharded, their draws
+    # for the port's ranks; path 2's flagship θ0 and the unsharded kernel's
+    # loss on the true rows of the 64·n − 5-row batch
+    for path, opts, second, adam in ((3, entry.PATH3, "jax", 15),
+                                     (4, entry.PATH4, "lm", 10)):
+        jd = JaxDriver(dataclasses.replace(graft._poiseuille_spec(),
+                                           width=DRYRUN_WIDTH),
+                       JaxOptions(**opts), base_dir=out["base"],
+                       save_results=False, seed=0, second_round=second,
+                       adam_epochs=adam)
+        out["arrays"][str(path)] = lm._arrays(jd)
+        out["hist"][f"path{path}"] = jd.train(callbacks=False).history
+        if path == 4:
+            assert jd.pb.lm_used_fast_gram
+    model, norm, physics = graft._flagship()
+    out["flagship"] = [{k: np.asarray(p[k]) for k in ("kernel", "bias")}
+                       for p in model.params]
+    for w in (3, 8):
+        batch = np.random.default_rng(0).uniform(0, 1, (64 * w, 2))
+        for dt in ("float32", "float64"):
+            p = jax.tree_util.tree_map(lambda a: jnp.asarray(a, dt),
+                                       model.params)
+            m = jax_ns_mse(p, jnp.asarray(batch[:64 * w - 5], dt), physics,
+                           norm, interpret=True)
+            out["step"][(w, dt)] = float(10.0 * m[0] + m[1] + m[2])
     spec = _spec()
     spec.pressure_gauge = "mean"
     jd = _jax_driver("70", spec=spec)
@@ -196,6 +245,7 @@ def w3(ref, tmp_path_factory):
                                       "callbacks": False},
                             driver=dict(resume, save_results=False))
     jobs.update(OWN_JOBS)
+    jobs.update(_dryrun_jobs(ref))
     ranks = _spawn(3, list(jobs.values()), tmp_path_factory.mktemp("w3"))
     return {name: [r[i] for r in ranks] for i, name in enumerate(jobs)}
 
@@ -221,11 +271,24 @@ OWN_JOBS = {
 }
 
 
+def _dryrun_jobs(ref):
+    """The dry run's jobs by name: path 2 on tpinn's flagship θ0, paths 3-4
+    on its draws."""
+    jobs = entry.dryrun_jobs(ref["base"], "cpu",
+                             {p: ref["arrays"][p] for p in "34"},
+                             ref["flagship"])
+    for job in jobs[2:]:
+        job["spec"] = {"width": DRYRUN_WIDTH}
+    return dict(zip(("step float32", "step float64", "path3", "path4"),
+                    jobs))
+
+
 @pytest.fixture(scope="module")
 def w8(ref, tmp_path_factory):
-    jobs = [_job(ref["arrays"][o], opts=OPTS[o], eval=True) for o in OPTS]
-    ranks = _spawn(8, jobs, tmp_path_factory.mktemp("w8"))
-    return {o: [r[i] for r in ranks] for i, o in enumerate(OPTS)}
+    jobs = {o: _job(ref["arrays"][o], opts=OPTS[o], eval=True) for o in OPTS}
+    jobs.update(_dryrun_jobs(ref))
+    ranks = _spawn(8, list(jobs.values()), tmp_path_factory.mktemp("w8"))
+    return {name: [r[i] for r in ranks] for i, name in enumerate(jobs)}
 
 
 def _rel(a, b):
@@ -355,3 +418,33 @@ def test_own_cases_equal_one_process(w3, name):
         assert all(r["lm_used_fast_gram"] for r in ranks)
     assert _dev(hr, h, {1}) < ADAM_BAR
     assert _dev(hr, h, {2}) < ROUND_BAR
+
+
+@pytest.mark.parametrize("world", [3, 8])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_dryrun_step_equals_tpinn(ref, w3, w8, world, dtype):
+    ranks = (w3 if world == 3 else w8)[f"step {dtype}"]
+    for r in ranks[1:]:
+        assert (r["theta"], r["l1"], r["l2"]) == (
+            ranks[0]["theta"], ranks[0]["l1"], ranks[0]["l2"])
+    step = ranks[0]
+    assert step["n_true"] == 64 * world - 5
+    assert entry.step_ok(step)
+    bar = entry.STEP_BARS[getattr(torch, dtype)][2]
+    assert abs(step["l1"] / ref["step"][(world, dtype)] - 1.0) < bar
+
+
+@pytest.mark.parametrize("world", [3, 8])
+@pytest.mark.parametrize("path", [3, 4])
+def test_dryrun_paths_equal_tpinn_unsharded(ref, w3, w8, world, path):
+    ranks = (w3 if world == 3 else w8)[f"path{path}"]
+    _same_on_every_rank(ranks)
+    h = History.from_dict(ranks[0]["history"])
+    hj = ref["hist"][f"path{path}"]
+    assert h.round_names == hj.round_names == [
+        "keras_Adam", "jax_L-BFGS" if path == 3 else "jax_LM"]
+    assert h.iters == hj.iters
+    assert _dev(hj, h, {1}) < ADAM_BAR
+    assert _dev(hj, h, {2}) < ROUND_BAR
+    if path == 4:
+        assert all(r["lm_used_fast_gram"] for r in ranks)

@@ -95,9 +95,14 @@ def test_port_file_has_no_forbidden_import(path):
 # h5py, matplotlib, pandas or tpinn (a spawned process imports the module of
 # its function afresh)
 _RANK_MODULES = ("tpinn_torch.sharding", "tpinn_torch.sharded_runs")
+# the entry points of the scripts' counterparts: each loads none of them
+# either, on its own
+_SCRIPT_MODULES = ("tpinn_torch.entry", "tpinn_torch.campaign",
+                   "tpinn_torch.polish_scan", "tpinn_torch.lm_ab",
+                   "tpinn_torch.diagnostics", "tpinn_torch.witness")
 
 
-@pytest.mark.parametrize("module", _RANK_MODULES)
+@pytest.mark.parametrize("module", _RANK_MODULES + _SCRIPT_MODULES)
 def test_rank_modules_load_no_reference_stack(module):
     code = (
         f"import sys, importlib; importlib.import_module({module!r})\n"

@@ -296,12 +296,12 @@ def save_artifacts(folder, pb, model, norm, data, opts) -> None:
                            echo=False)
 
 
-def main(epochs=None, save_results=True, base_dir=None, second_round="scipy",
-         seed=0, resume_from=None, refine=0, noise_bnd=None, adam_lr=1e-2, *,
-         device=None):
-    """Train the case into a run folder under ``base_dir`` (default: the
-    working directory), or continue the run in ``resume_from``; returns
-    (pb, model)."""
+def problem(epochs=None, base_dir=None, seed=0, resume_from=None, refine=0,
+            noise_bnd=None, device=None):
+    """The case's problem as ``main`` builds it in ``base_dir`` (default:
+    the working directory), resumed from the run folder ``resume_from``
+    when given (its weights, checkpoint and history), without callbacks:
+    (pb, model, norm, data, opts)."""
     device = config.resolve_device(device)
     cwd = base_dir or os.getcwd()
     opts_file = os.path.join(cwd, "simulation_options.txt")
@@ -317,11 +317,22 @@ def main(epochs=None, save_results=True, base_dir=None, second_round="scipy",
     model = make_model(device, input_extents=extents(data["nodes"]),
                        seed=seed)
     pb, norm = build(model, arrays, fit_velocity=opts.fit_velocity)
-
-    folder = (resume_from if resume_from is not None
-              else experiment.prepare_folder(cwd, save_results))
     if resume_from is not None:
         resume_run(pb, resume_from)
+    return pb, model, norm, data, opts
+
+
+def main(epochs=None, save_results=True, base_dir=None, second_round="scipy",
+         seed=0, resume_from=None, refine=0, noise_bnd=None, adam_lr=1e-2, *,
+         device=None):
+    """Train the case into a run folder under ``base_dir`` (default: the
+    working directory), or continue the run in ``resume_from``; returns
+    (pb, model)."""
+    cwd = base_dir or os.getcwd()
+    pb, model, norm, data, opts = problem(epochs, cwd, seed, resume_from,
+                                          refine, noise_bnd, device)
+    folder = (resume_from if resume_from is not None
+              else experiment.prepare_folder(cwd, save_results))
     pb.callbacks.append(HistoryPlotCallback(
         frequency=100, gui=False,
         filename=os.path.join(folder, "Loss_Trend_Full.png"),

@@ -73,6 +73,16 @@ def weights_file(folder) -> Optional[str]:
     return None
 
 
+def folder_dtype(folder) -> torch.dtype:
+    """The float dtype a run folder was trained in: its checkpoint's
+    parameters' (float64 where the folder holds no checkpoint)."""
+    path = os.path.join(folder, "checkpoint.pkl")
+    if not os.path.exists(path):
+        return torch.float64
+    kernel = load_checkpoint(path)["params"][0]["kernel"]
+    return getattr(torch, np.asarray(kernel).dtype.name)
+
+
 def save_experiment(folder, model: Model, history: Optional[History] = None,
                     opt_state=None, prng_key=None) -> str:
     """Write Model.json, the weights, History_Loss.json and checkpoint.pkl

@@ -22,6 +22,12 @@ A job is a dict, run on every rank in turn:
 * ``{"kind": "objectives", ...}``: the sharding functions on given arrays:
   ``pad_to_multiple``, ``shard_points``, ``shard_pair`` and the two sharded
   NS objectives with their parameter gradients.
+* ``{"kind": "entry_step", "dtype": ..., "device": ..., "params": ...}``:
+  the dry run's path 2 (``tpinn_torch.entry.sharded_step``): one Adam step
+  of the sharded fused objective on a batch that does not divide the mesh,
+  the one-pass objective against the fwd+bwd pair, the masked mean against
+  the unsharded kernel.  The dry run's paths 3 and 4 are driver jobs of
+  the case ``tpinn_torch.entry``.
 
 A job with ``"fail_rank": r`` raises on rank r before its first collective
 (a failing rank must stop the run, not hang it).
@@ -158,8 +164,15 @@ def run_job(rank: int, mesh, job: dict, prev: Optional[dict] = None):
     saved = {k: os.environ.get(k) for k in env}
     os.environ.update(env)
     try:
-        if job.get("kind", "driver") == "objectives":
+        kind = job.get("kind", "driver")
+        if kind == "objectives":
             return _objectives_job(rank, mesh, job)
+        if kind == "entry_step":
+            from tpinn_torch import entry
+
+            return entry.sharded_step(mesh, getattr(torch, job["dtype"]),
+                                      job.get("device", "cpu"),
+                                      job.get("params"))
         return _driver_job(rank, mesh, job, prev)
     finally:
         for k, v in saved.items():
