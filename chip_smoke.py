@@ -671,8 +671,7 @@ def cuda_ms(fn, inner, reps=REPS, warmup=2):
 
 def device_profile(fn, calls=20):
     """(device ms per launch, device kernels per call, kernel names) of
-    ``fn`` under torch.profiler (CUDA activity, after a warm-up call), as
-    tpinn_torch/profiling.py reads a trace."""
+    ``fn`` under torch.profiler (CUDA activity, after a warm-up call)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 

@@ -8,7 +8,8 @@ short round of each slice on the card against the CPU; the dense BFGS
 round on the card (against the CPU, one kernel-1 launch per evaluation,
 bit-identical repeats, and an exact resume from its run folder); the
 L-BFGS round on the card (against the CPU, a bit-identical repeat, one
-kernel-1 launch per line-search trial); kernels 1/2 over no valid row;
+kernel-1 launch per line-search trial; its kernel launches inside the
+program's spans); kernels 1/2 over no valid row;
 the roofline probe's kernels
 against their plain versions and their SASS; the cavity oracle on the card
 against the CPU; an unsteady round through kernels 1/2 at d_in 3 against
@@ -573,6 +574,58 @@ def test_lbfgs_one_kernel_launch_per_trial(cuda, tmp_path):
         == counts["trials"] + 1
     assert mb.LAUNCHES["ns_residual_fwd"] == len(drv.pb.history.iters)
     assert mb.LAUNCHES["taylor_bundle"] == 0
+
+
+# the CUDA runtime and CUDA API calls that launch a kernel, as the trace
+# names them
+LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                "cuLaunchKernelEx")
+
+
+@pytest.mark.cuda
+def test_lbfgs_launches_lie_in_program_spans(cuda, tmp_path):
+    """The spans share the device trace's clock on the card: under a
+    profiler that records the card's activity alone (as the benchmark's
+    traced round does), every kernel launch of the L-BFGS iterations lies
+    inside a span other than ``round``, and every trial's ``host_read``
+    holds the runtime call that copies its flags to the host."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from tpinn_torch import profiling
+    from tpinn_torch.cases import poiseuille_flow
+    from tpinn_torch.optimize import minimize
+
+    drv = poiseuille_flow.main(str(tmp_path), adam_epochs=10,
+                               save_results=False, device=cuda,
+                               second_round="none")
+    torch.cuda.synchronize()
+    profiling.clear_spans()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        minimize(drv.pb, "jax", "L-BFGS", num_epochs=10)
+        torch.cuda.synchronize()
+    spans = profiling.spans()
+    profiling.clear_spans()
+    steps = [s for s in spans if s.name == "step"]
+    assert len(steps) == 10
+    first, last = steps[0].start_ns, steps[-1].end_ns
+    host = [(e.name(), e.start_ns(), e.start_ns() + e.duration_ns())
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() != torch.autograd.DeviceType.CUDA]
+    launches = [h for h in host if h[0] in LAUNCH_CALLS
+                and first <= h[1] <= last]
+    assert len(launches) >= 10 * 100
+    inner = [s for s in spans if s.name != "round"]
+    for name, a, b in launches:
+        assert any(s.start_ns <= a and b <= s.end_ns for s in inner), \
+            (name, a, b)
+    reads = [s for s in spans if s.name == "host_read"
+             and spans[s.parent].name == "linesearch.trial"]
+    copies = [h for h in host if h[0].startswith(("cudaMemcpy",
+                                                  "cudaStreamSynchronize"))]
+    assert len(reads) == drv.pb.lbfgs_counts["trials"]
+    for s in reads:
+        assert any(s.start_ns <= a and b <= s.end_ns
+                   for _, a, b in copies), s
 
 
 # ---------------------------------------------------------------------------

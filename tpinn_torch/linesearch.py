@@ -41,6 +41,8 @@ from typing import Callable, Tuple
 
 import torch
 
+from tpinn_torch.profiling import span
+
 ValueAndGrad = Callable[[torch.Tensor], Tuple[torch.Tensor, torch.Tensor]]
 
 
@@ -299,16 +301,19 @@ class ZoomLinesearch:
     def step(self, st: ZoomLinesearchState, vg: ValueAndGrad):
         """One trial.  Returns (state, stop, final value non-finite); those
         flags and the phase are read from the device in one transfer."""
-        if st.interval_found:
-            st = self._zoom_into_interval(st, vg)
-            found = torch.ones_like(st.done)
-        else:
-            st, found = self._search_interval(st, vg)
-        st = self._try_safe_step(st)
-        stop, nonfinite, found = torch.stack(
-            [st.done | st.failed, ~torch.isfinite(st.value), found]).tolist()
-        st.interval_found = found
-        return st, stop, nonfinite
+        with span("linesearch.trial"):
+            if st.interval_found:
+                st = self._zoom_into_interval(st, vg)
+                found = torch.ones_like(st.done)
+            else:
+                st, found = self._search_interval(st, vg)
+            st = self._try_safe_step(st)
+            flags = torch.stack(
+                [st.done | st.failed, ~torch.isfinite(st.value), found])
+            with span("host_read"):
+                stop, nonfinite, found = flags.tolist()
+            st.interval_found = found
+            return st, stop, nonfinite
 
     def run(self, st: ZoomLinesearchState, vg: ValueAndGrad):
         """Trials until the search stops: (final state, final value
@@ -353,10 +358,13 @@ class ScaleByZoomLinesearch:
     def update(self, updates: torch.Tensor, state: ScaleByZoomLinesearchState,
                params: torch.Tensor, *, value: torch.Tensor,
                grad: torch.Tensor, value_and_grad_fn: ValueAndGrad):
-        st = self.search.init(updates, params, value=value, grad=grad)
-        st, nonfinite = self.search.run(st, value_and_grad_fn)
-        new_state = ScaleByZoomLinesearchState(
-            learning_rate=st.stepsize, value=st.value, grad=st.grad,
-            num_linesearch_steps=st.count, decrease_error=st.decrease_error,
-            curvature_error=st.curvature_error, value_nonfinite=nonfinite)
-        return st.stepsize * updates, new_state
+        with span("linesearch"):
+            st = self.search.init(updates, params, value=value, grad=grad)
+            st, nonfinite = self.search.run(st, value_and_grad_fn)
+            new_state = ScaleByZoomLinesearchState(
+                learning_rate=st.stepsize, value=st.value, grad=st.grad,
+                num_linesearch_steps=st.count,
+                decrease_error=st.decrease_error,
+                curvature_error=st.curvature_error,
+                value_nonfinite=nonfinite)
+            return st.stepsize * updates, new_state

@@ -57,6 +57,7 @@ from tpinn_torch.linesearch import ScaleByZoomLinesearch
 from tpinn_torch.losses import LossMeanSquares
 from tpinn_torch.optimizers import Adam, Optimizer
 from tpinn_torch.problem import OptimizationProblem
+from tpinn_torch.profiling import span
 
 
 def _log_point(pb: OptimizationProblem, iter_in_round: int,
@@ -65,13 +66,14 @@ def _log_point(pb: OptimizationProblem, iter_in_round: int,
     vector, when given) into the model, append the evaluation to the
     history, then fire the callbacks at the global iteration, so that a
     checkpoint taken there holds the state the history claims."""
-    if isinstance(theta, torch.Tensor):
-        pb.set_flat(theta)
-    elif theta is not None:
-        pb.set_vector(theta)
-    total, train, test = pb.eval_all()
-    pb.history.append(iter_in_round, total, train, test)
-    pb.fire_callbacks(pb.history.round_starts[-1] + iter_in_round)
+    with span("log_point"):
+        if isinstance(theta, torch.Tensor):
+            pb.set_flat(theta)
+        elif theta is not None:
+            pb.set_vector(theta)
+        total, train, test = pb.eval_all()
+        pb.history.append(iter_in_round, total, train, test)
+        pb.fire_callbacks(pb.history.round_starts[-1] + iter_in_round)
 
 
 def _consume_resume_state(pb: OptimizationProblem, kind: str):
@@ -124,8 +126,9 @@ def _minimize_first_order(pb: OptimizationProblem, optimizer: Optimizer,
     done = 0
     for target in _log_iters(num_epochs, LOG_STRIDE)[1:]:
         for _ in range(target - done):
-            _, grads = pb.loss_and_grads(params)
-            optimizer.step(params, grads)
+            with span("step"):
+                _, grads = pb.loss_and_grads(params)
+                optimizer.step(params, grads)
         done = target
         _log_point(pb, done)
     pb.history.add_wall_time(time.perf_counter() - t0)
@@ -204,7 +207,8 @@ def _wolfe_zoom_linesearch(f_1d, f0, g0, max_iters=30, c1=1e-4, c2=0.9):
         best_a = torch.where(better, alpha, best_a)
         best_f = torch.where(better, fa, best_f)
         alpha = torch.where(ok, alpha, new_alpha)
-        done = bool(ok)
+        with span("host_read"):
+            done = bool(ok)
         it += 1
     if not done:
         alpha = best_a
@@ -650,7 +654,8 @@ def _minimize_jax_lbfgs(pb: OptimizationProblem, num_epochs: int,
             value, grad = vg(x)
         else:
             value, grad = ls_state.value, ls_state.grad
-        d = -1.0 * _scale_by_lbfgs(grad, lbfgs, x)
+        with span("lbfgs.direction"):
+            d = -1.0 * _scale_by_lbfgs(grad, lbfgs, x)
         if timed:
             _sync(device)
             part["direction"] = time.perf_counter() - tick
@@ -677,7 +682,8 @@ def _minimize_jax_lbfgs(pb: OptimizationProblem, num_epochs: int,
                 part = {}
                 pb.lbfgs_times.append(part)
             tick = time.perf_counter()
-            x, ls_state = step(x, ls_state)
+            with span("step"):
+                x, ls_state = step(x, ls_state)
             counts["iterations"] += 1
         done = target
         publish()
@@ -1047,25 +1053,27 @@ def minimize(pb: OptimizationProblem, strategy: str, optimizer=None,
     """Run one optimization round; appends to pb.history and updates the
     model's parameters in place.  ``timed`` makes the dense BFGS and the
     L-BFGS rounds record their iteration split (``pb.bfgs_times``,
-    ``pb.lbfgs_times``)."""
-    strategy = strategy.lower()
-    if strategy in ("keras", "adam"):
-        optimizer = _first_order_optimizer(optimizer)
-        return _minimize_first_order(pb, optimizer, num_epochs,
-                                     round_name=f"keras_{optimizer.name}")
-    if strategy == "scipy":
-        method = optimizer if isinstance(optimizer, str) else "BFGS"
-        with _ieee_products():
-            return _minimize_scipy(pb, method, num_epochs)
-    if strategy in ("jax", "lbfgs"):
-        method = optimizer if isinstance(optimizer, str) else "L-BFGS"
-        key = method.upper().replace("-", "").replace("_", "")
-        if key == "BFGS":
+    ``pb.lbfgs_times``).  The round is one ``round`` span
+    (``tpinn_torch.profiling``)."""
+    with span("round"):
+        strategy = strategy.lower()
+        if strategy in ("keras", "adam"):
+            optimizer = _first_order_optimizer(optimizer)
+            return _minimize_first_order(pb, optimizer, num_epochs,
+                                         round_name=f"keras_{optimizer.name}")
+        if strategy == "scipy":
+            method = optimizer if isinstance(optimizer, str) else "BFGS"
             with _ieee_products():
-                return _minimize_jax_bfgs(pb, num_epochs, timed=timed)
-        if key in ("LM", "GN", "LEVENBERGMARQUARDT", "GAUSSNEWTON"):
+                return _minimize_scipy(pb, method, num_epochs)
+        if strategy in ("jax", "lbfgs"):
+            method = optimizer if isinstance(optimizer, str) else "L-BFGS"
+            key = method.upper().replace("-", "").replace("_", "")
+            if key == "BFGS":
+                with _ieee_products():
+                    return _minimize_jax_bfgs(pb, num_epochs, timed=timed)
+            if key in ("LM", "GN", "LEVENBERGMARQUARDT", "GAUSSNEWTON"):
+                with _ieee_products():
+                    return _minimize_lm(pb, num_epochs)
             with _ieee_products():
-                return _minimize_lm(pb, num_epochs)
-        with _ieee_products():
-            return _minimize_jax_lbfgs(pb, num_epochs, timed=timed)
-    raise ValueError(f"unknown strategy {strategy!r}")
+                return _minimize_jax_lbfgs(pb, num_epochs, timed=timed)
+        raise ValueError(f"unknown strategy {strategy!r}")

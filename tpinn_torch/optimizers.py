@@ -30,6 +30,8 @@ from typing import Callable, List, Optional, Sequence, Union
 
 import torch
 
+from tpinn_torch.profiling import span
+
 Rate = Union[float, Callable[[int], float]]
 
 
@@ -54,12 +56,13 @@ class Optimizer:
     @torch.no_grad()
     def step(self, params: Sequence[torch.Tensor],
              grads: Sequence[torch.Tensor]) -> None:
-        rate = self.learning_rate
-        if callable(rate):
-            rate = float(rate(self.step_count))
-        self.step_count += 1
-        for p, u in zip(params, self.updates(params, grads)):
-            p.add_(-rate * u)
+        with span("adam.update"):
+            rate = self.learning_rate
+            if callable(rate):
+                rate = float(rate(self.step_count))
+            self.step_count += 1
+            for p, u in zip(params, self.updates(params, grads)):
+                p.add_(-rate * u)
 
 
 def cosine_decay_schedule(init_value: float, decay_steps: int,

@@ -30,6 +30,7 @@ from tpinn_torch import sharding
 from tpinn_torch.history import History
 from tpinn_torch.losses import Loss
 from tpinn_torch.models import Model, VariablesHandle
+from tpinn_torch.profiling import span
 
 # parameter tangents per block of the chunked Jacobian (the JAX package's
 # LM chunk)
@@ -101,12 +102,17 @@ class OptimizationProblem:
         """(global loss, its gradients w.r.t. ``tensors``); a tensor the
         loss does not read gets a zero gradient.  Under a mesh the ranks'
         shares and gradients are summed in one collective."""
-        loss = self.loss_fn()
-        grads = torch.autograd.grad(loss, tensors, materialize_grads=True)
-        if self.mesh is None:
+        with span("objective"):
+            with span("objective.forward"):
+                loss = self.loss_fn()
+            with span("objective.backward"):
+                grads = torch.autograd.grad(loss, tensors,
+                                            materialize_grads=True)
+            if self.mesh is None:
+                return loss, grads
+            with span("objective.allreduce"):
+                loss, *grads = self.mesh_sum(loss.reshape(()), *grads)
             return loss, grads
-        loss, *grads = self.mesh_sum(loss.reshape(()), *grads)
-        return loss, grads
 
     @torch.no_grad()
     def eval_all(self):
@@ -118,7 +124,9 @@ class OptimizationProblem:
         raws = [l.raw_value() if self._counts(l) else zero
                 for l in self.losses + self.losses_test]
         values = torch.stack([torch.as_tensor(r) for r in raws])
-        values = self.mesh_sum(values)[0].tolist()
+        values = self.mesh_sum(values)[0]
+        with span("host_read"):
+            values = values.tolist()
         n_train = len(self.losses)
         train = dict(zip(names[:n_train], values[:n_train]))
         test = dict(zip(names[n_train:], values[n_train:]))

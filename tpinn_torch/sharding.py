@@ -46,6 +46,7 @@ import torch.distributed as dist
 
 from tpinn_torch import config
 from tpinn_torch.kernels import mlp_bundle
+from tpinn_torch.profiling import span
 
 POINT_AXIS = "points"
 
@@ -134,7 +135,8 @@ def all_ranks(mesh, flag: bool, device=None) -> bool:
     t = torch.tensor([1.0 if flag else 0.0], dtype=torch.float64,
                      device=device)
     dist.all_reduce(t, op=dist.ReduceOp.MIN, group=mesh.get_group())
-    return bool(t.item() == 1.0)
+    with span("host_read"):
+        return bool(t.item() == 1.0)
 
 
 def on_rank0(mesh, fn, *args, **kwargs):
