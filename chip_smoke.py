@@ -113,7 +113,11 @@ exits non-zero:
    bit-identical, with its host synchronisations counted; the iteration
    split (direction, that is the two-loop recursion, and the line search's
    evaluations) from a timed repeat, also bit-identical; the ms per
-   iteration beside phase 15's dense BFGS;
+   iteration beside phase 15's dense BFGS; one direction-kernel launch per
+   iteration, and that kernel (csrc/lbfgs_direction.cu) at n = 2,307, 921
+   and 2,339 (m = 50, a wrapped ring, float64) against the plain op
+   sequence on the card (1e-12), its call, host and device µs beside the
+   plain sequence's ms and the ring's bytes over 3.35 TB/s;
 20. the slice at full width: colliding flow at its reference options
    (1000 PDE points, 100 per edge, 5 velocity and 1 pressure fitting
    points, 10,000 test points, 2-32-32-32-3, float64, NS kernels at
@@ -239,7 +243,8 @@ exits non-zero:
    where the host has several cards, one rank per card over NCCL instead),
    through ``tpinn_torch.sharding`` and the driver's ``mesh``: (a) Adam
    100 + the default "scipy" dense BFGS 20, kernels 1/2 on every rank's
-   shard; (b) Adam 100 + L-BFGS 20; (c) LM 5 on the device ladder under
+   shard; (b) Adam 100 + L-BFGS 20, the direction kernel on every rank
+   too (θ replicated); (c) LM 5 on the device ladder under
    TPINN_USE_PALLAS=1, kernel 5 on every rank's shard, the fast Gram; each
    held against the same run unsharded on the card in this process
    (every log at 1e-8), θ byte-identical on every rank after every round,
@@ -710,6 +715,69 @@ def host_ms(fn, reps=50, warmup=3):
     return times[len(times) // 2]
 
 
+def direction_times(dev, sizes=(2307, 921, 2339), m=50):
+    """The L-BFGS direction kernel at the nets' sizes on a wrapped ring
+    (count 123, pairs y = D·s with D in [0.5, 2], float64): against the
+    plain op sequence on the card (``_store_pair`` and
+    ``_precondition_by_lbfgs``, the route a CUDA vector took before the
+    kernel) at 1e-12, one device kernel a call; per size its call µs (CUDA
+    events, 50 back-to-back calls), host µs of a call ended by a sync (as a
+    timed round reads the direction), device µs (torch.profiler), the plain
+    sequence's ms both ways, and the bytes bound: the ring's older rows
+    read once, the four vectors read and the pair and direction written,
+    over 3.35 TB/s."""
+    import numpy as np
+    import torch
+
+    from tpinn_torch.kernels.lbfgs_direction import lbfgs_direction
+    from tpinn_torch.optimize import (LBFGSState, _precondition_by_lbfgs,
+                                      _store_pair)
+
+    rows = {}
+    for n in sizes:
+        rng = np.random.default_rng(n)
+        t = lambda a: torch.tensor(a, dtype=torch.float64, device=dev)
+        st = LBFGSState(t(np.zeros(n)), m)
+        st.count = 123
+        s_ = t(1e-2 * rng.normal(size=(m, n)))
+        st.diff_params_memory.copy_(s_)
+        st.diff_updates_memory.copy_(s_ * t(rng.uniform(0.5, 2.0, (m, n))))
+        st.weights_memory.copy_(1.0 / (st.diff_params_memory
+                                       * st.diff_updates_memory).sum(1))
+        st.params, st.updates = t(rng.normal(size=n)), t(rng.normal(size=n))
+        dx = 1e-2 * rng.normal(size=n)
+        x = st.params + t(dx)
+        g = st.updates + t(dx * rng.uniform(0.5, 2.0, n))
+
+        def kernel():
+            return lbfgs_direction(g, x, st.updates, st.params,
+                                   st.diff_params_memory,
+                                   st.diff_updates_memory, st.weights_memory,
+                                   st.count)
+
+        def plain():
+            scale = _store_pair(g, st, x)
+            return -1.0 * _precondition_by_lbfgs(
+                g, st.diff_params_memory, st.diff_updates_memory,
+                st.weights_memory, scale, st.count % m)
+
+        gap = float(torch.linalg.norm(kernel() - plain())
+                    / torch.linalg.norm(plain()))
+        d_ms, per_call, names = device_profile(kernel)
+        if (gap > 1e-12 or per_call != 1
+                or not all("lbfgs_direction_kernel" in k for k in names)):
+            raise AssertionError(f"direction kernel at n = {n}: gap {gap}, "
+                                 f"{per_call} kernels a call {names}")
+        nbytes = 8 * n * (2 * (m - 1) + 4 + 3)
+        rows[n] = {"gap": gap, "call_us": 1e3 * cuda_ms(kernel, 50),
+                   "host_us": 1e3 * host_ms(kernel),
+                   "device_us": 1e3 * d_ms, "launches_per_call": per_call,
+                   "plain_ms": cuda_ms(plain, 3, reps=5),
+                   "plain_host_ms": host_ms(plain, reps=10),
+                   "bound_us": 1e6 * nbytes / 3.35e12, "bytes": nbytes}
+    return rows
+
+
 def sharded_phase(work_dir, dev):
     """Phase 36: the sharded slice on a point mesh of ranks against the
     same runs in one process: SHARD_RANKS ranks sharing the one device
@@ -849,7 +917,8 @@ def sharded_phase(work_dir, dev):
               f"{[[round(v, 2) for v in m_] for m_ in ms]}"
               f" (one process {[round(v, 2) for v in ms_ref]})")
         want = ({"taylor_bundle"} if name == "c"
-                else {"ns_residual_bwd", "ns_residual_fwd"})
+                else {"ns_residual_bwd", "ns_residual_fwd"}
+                | ({"lbfgs_direction"} if name == "b" else set()))
         launched = {k for r in got for l in r["launches"] for k, v in
                     l.items() if v}
         ok = (hs.iters == hr.iters and hs.round_names == hr.round_names
@@ -2391,6 +2460,7 @@ def main():
             raise AssertionError("L-BFGS did not reduce the loss")
         k1 = lbfgs_launches["ns_residual_bwd"] - 100
         if (k1 != counts["evaluations"] or k1 != counts["trials"] + 1
+                or lbfgs_launches["lbfgs_direction"] != n_it
                 or lbfgs_launches["ns_residual_fwd"] != len(h.iters)
                 or lbfgs_launches["taylor_bundle"]
                 or lbfgs_launches["poisson_residual_bwd"]):
@@ -2459,7 +2529,15 @@ def main():
               + f"; timed round bit-identical too: {timed_same}")
         if not timed_same:
             raise AssertionError("the timed round differs")
+        dir_rows = direction_times(dev)
+        for n, r in dir_rows.items():
+            print(f"  direction kernel at n = {n}, m = 50: call "
+                  f"{r['call_us']:.2f} µs, host {r['host_us']:.2f} µs, device "
+                  f"{r['device_us']:.2f} µs (bytes bound {r['bound_us']:.3f} "
+                  f"µs); the plain sequence on the card {r['plain_ms']:.3f} "
+                  f"ms, host {r['plain_host_ms']:.3f} ms; gap {r['gap']:.1e}")
         record["lbfgs_slice"] = {
+            "direction_kernel": dir_rows,
             "launches": lbfgs_launches, "counts": counts,
             "wall_s": lbfgs_wall, "ms_per_iteration": lbfgs_ms,
             "bfgs_ms_per_iteration": bfgs_ms,
@@ -3819,6 +3897,20 @@ def main():
                  for n in (33, 1000, 3000)}})
     # the probe's bodies: a measurement entry point, on no slice's path;
     # "launches" counts phase 24's rate runs, the times are float64, S 5
+    # the L-BFGS direction: no TPU kernel (optax's XLA ops), so no error
+    # against one; its gap to the plain sequence is direction_times' check
+    d_row = record["lbfgs_slice"]["direction_kernel"][2307]
+    kernels.append({
+        "name": "lbfgs_direction", "route": "cuda",
+        "source": "tpinn_torch/kernels/csrc/lbfgs_direction.cu",
+        "replaces": None, "launches": lbfgs_launches["lbfgs_direction"],
+        "max_abs_err": None, "gap": d_row["gap"],
+        "ms": 1e-3 * d_row["call_us"], "plain_ms": d_row["plain_ms"],
+        "bound_ms": 1e-3 * d_row["bound_us"], "bound_by": "bytes",
+        "library_ms": None, "device_ms": 1e-3 * d_row["device_us"],
+        "launches_per_call": d_row["launches_per_call"],
+        "launches_by_path": {k: v["lbfgs_direction"] for k, v in paths.items()
+                             if v["lbfgs_direction"]}})
     for body in rp.BODIES:
         r = probe_rows[(body, "float64", 5)]
         per = r["tiles"] * r["streams"] * r["width"] * r["chunk"]

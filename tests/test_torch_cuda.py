@@ -9,7 +9,10 @@ round on the card (against the CPU, one kernel-1 launch per evaluation,
 bit-identical repeats, and an exact resume from its run folder); the
 L-BFGS round on the card (against the CPU, a bit-identical repeat, one
 kernel-1 launch per line-search trial; its kernel launches inside the
-program's spans); kernels 1/2 over no valid row;
+program's spans, one per ``lbfgs.direction`` span); the L-BFGS direction
+kernel against the plain op sequence (float32 and float64, four rings,
+n 921-40,000; bit-identical repeats, one launch a call, 60 chained steps
+past the ring's wrap); kernels 1/2 over no valid row;
 the roofline probe's kernels
 against their plain versions and their SASS; the cavity oracle on the card
 against the CPU; an unsteady round through kernels 1/2 at d_in 3 against
@@ -587,7 +590,8 @@ def test_lbfgs_launches_lie_in_program_spans(cuda, tmp_path):
     """The spans share the device trace's clock on the card: under a
     profiler that records the card's activity alone (as the benchmark's
     traced round does), every kernel launch of the L-BFGS iterations lies
-    inside a span other than ``round``, and every trial's ``host_read``
+    inside a span other than ``round``, each ``lbfgs.direction`` span holds
+    one launch (the direction kernel's), and every trial's ``host_read``
     holds the runtime call that copies its flags to the host."""
     from torch.profiler import ProfilerActivity, profile
 
@@ -618,6 +622,11 @@ def test_lbfgs_launches_lie_in_program_spans(cuda, tmp_path):
     for name, a, b in launches:
         assert any(s.start_ns <= a and b <= s.end_ns for s in inner), \
             (name, a, b)
+    directions = [s for s in spans if s.name == "lbfgs.direction"]
+    assert len(directions) == 10
+    for s in directions:
+        held = [h for h in launches if s.start_ns <= h[1] <= s.end_ns]
+        assert len(held) == 1, held
     reads = [s for s in spans if s.name == "host_read"
              and spans[s.parent].name == "linesearch.trial"]
     copies = [h for h in host if h[0].startswith(("cudaMemcpy",
@@ -626,6 +635,141 @@ def test_lbfgs_launches_lie_in_program_spans(cuda, tmp_path):
     for s in reads:
         assert any(s.start_ns <= a and b <= s.end_ns
                    for _, a, b in copies), s
+
+
+# ---------------------------------------------------------------------------
+# the L-BFGS direction kernel
+# ---------------------------------------------------------------------------
+
+def _lbfgs_state(n, ring, dtype, seed, m=50):
+    """(state, x, g) on the CPU: an L-BFGS state of ``ring`` ("count0" a
+    fresh one; "partial" count 7, six pairs stored; "wrapped" and
+    "zero_curvature" count 123, every slot filled) whose pairs have
+    y = D s + noise, D diagonal in [0.5, 2] (positive curvature, as the
+    round's line search keeps it), and a gradient g at x whose newest pair
+    is of the same kind; with "zero_curvature" the newest pair's Δw and Δu
+    have disjoint supports, so ⟨Δu, Δw⟩ = 0 exactly and its weight is 0."""
+    from tpinn_torch.optimize import LBFGSState
+
+    rng = np.random.default_rng(seed)
+    count = {"count0": 0, "partial": 7, "wrapped": 123,
+             "zero_curvature": 123}[ring]
+    st = LBFGSState(torch.zeros(n, dtype=dtype), m)
+    st.count = count
+    pair = lambda s: s * rng.uniform(0.5, 2.0, n) + 1e-3 * rng.normal(size=n) * s
+    if count:
+        for i in range(m if count > m else count - 1):
+            s = 1e-2 * rng.normal(size=n)
+            st.diff_params_memory[i] = torch.tensor(s, dtype=dtype)
+            st.diff_updates_memory[i] = torch.tensor(pair(s), dtype=dtype)
+            st.weights_memory[i] = 1.0 / torch.dot(
+                st.diff_updates_memory[i], st.diff_params_memory[i]).double()
+        st.params = torch.tensor(rng.normal(size=n), dtype=dtype)
+        st.updates = torch.tensor(rng.normal(size=n), dtype=dtype)
+    dx = 1e-2 * rng.normal(size=n)
+    dg = pair(dx)
+    if ring == "zero_curvature":
+        dx[n // 2:] = 0.0
+        dg[:n // 2] = 0.0
+    x = st.params + torch.tensor(dx, dtype=dtype)
+    g = st.updates + torch.tensor(dg, dtype=dtype)
+    return st, x, g
+
+
+def _state_to(st, device):
+    from tpinn_torch.optimize import LBFGSState
+
+    out = LBFGSState(st.params.to(device), st.weights_memory.shape[0])
+    out.count = st.count
+    for k in ("params", "updates", "diff_params_memory",
+              "diff_updates_memory", "weights_memory"):
+        setattr(out, k, getattr(st, k).to(device).clone())
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ring", ["count0", "partial", "wrapped",
+                                  "zero_curvature"])
+@pytest.mark.parametrize("n", [921, 2307, 2339, 40000])
+@pytest.mark.parametrize("dtype,bar", [(torch.float64, 1e-12),
+                                       (torch.float32, 1e-5)])
+def test_lbfgs_direction_kernel_matches_plain(cuda, dtype, bar, n, ring):
+    """The kernel against the plain op sequence on the CPU
+    (``_scale_by_lbfgs``'s CPU route), from the same state: the direction
+    within ``bar`` of the plain one's norm (the dots sum in another order,
+    each off by rounding, and the 100-step recursion carries that on:
+    1e-12 in float64; float32's dots round at 6e-8, so 1e-5), the ring's
+    rows bit-equal (the differences are elementwise), the newest weight and
+    the identity scale within 8 ulps (one dot's rounding, then a division),
+    every other weight untouched; two calls agree bit for bit; one launch a
+    call."""
+    from tpinn_torch.kernels.lbfgs_direction import lbfgs_direction
+    from tpinn_torch.optimize import _scale_by_lbfgs, _store_pair
+
+    st, x, g = _lbfgs_state(n, ring, dtype, seed=n)
+    ref = _state_to(st, "cpu")
+    d_ref = _scale_by_lbfgs(g, ref, x)
+    scale_ref = float(_store_pair(g, _state_to(st, "cpu"), x))
+    xc, gc = x.to(cuda), g.to(cuda)
+    outs = []
+    for _ in range(2):
+        card = _state_to(st, cuda)
+        scale = torch.zeros(1, dtype=torch.float64, device=cuda)
+        before = mb.LAUNCHES["lbfgs_direction"]
+        d = lbfgs_direction(gc, xc, card.updates, card.params,
+                            card.diff_params_memory, card.diff_updates_memory,
+                            card.weights_memory, card.count, scale_out=scale)
+        torch.cuda.synchronize()
+        assert mb.LAUNCHES["lbfgs_direction"] == before + 1
+        outs.append((d.cpu(), card, float(scale)))
+    (d, card, scale), (d2, card2, scale2) = outs
+    assert d.dtype == dtype and d.shape == (n,)
+    assert torch.equal(d, d2) and scale == scale2
+    assert torch.equal(card.weights_memory, card2.weights_memory)
+    gap = float(torch.linalg.norm((d - d_ref).double())
+                / torch.linalg.norm(d_ref.double()))
+    assert gap < bar, gap
+    assert torch.equal(card.diff_params_memory.cpu(), ref.diff_params_memory)
+    assert torch.equal(card.diff_updates_memory.cpu(),
+                       ref.diff_updates_memory)
+    assert card.count == st.count  # the wrapper leaves the count to the caller
+    ulp = 8 * torch.finfo(dtype).eps
+    prev = (st.count - 1) % 50
+    w, w_ref = card.weights_memory.cpu(), ref.weights_memory
+    keep = [i for i in range(50) if i != prev]
+    assert torch.equal(w[keep], w_ref[keep])
+    assert abs(float(w[prev]) - float(w_ref[prev])) <= ulp * abs(float(w_ref[prev]))
+    if ring == "zero_curvature":
+        assert float(w[prev]) == 0.0 == scale
+    assert abs(scale - scale_ref) <= ulp * abs(scale_ref)
+
+
+@pytest.mark.cuda
+def test_lbfgs_direction_on_the_round_matches_plain_each_step(cuda):
+    """``_scale_by_lbfgs`` chained over 60 steps of a quadratic on the card
+    and on the CPU, past the ring's wrap, each side fed the same gradients
+    and positions: every direction within 1e-12 of the plain one, the card's
+    state moving on as the plain one (count, x_prev, g_prev), one launch a
+    step."""
+    from tpinn_torch.optimize import LBFGSState, _scale_by_lbfgs
+
+    rng = np.random.default_rng(7)
+    n = 2307
+    diag = torch.tensor(rng.uniform(0.5, 2.0, n))
+    x = torch.tensor(rng.normal(size=n))
+    cpu, card = LBFGSState(x, 50), LBFGSState(x.to(cuda), 50)
+    before = mb.LAUNCHES["lbfgs_direction"]
+    for k in range(60):
+        g = diag * x + 1e-3 * torch.tensor(rng.normal(size=n))
+        d_ref = _scale_by_lbfgs(g, cpu, x)
+        xc, gc = x.to(cuda), g.to(cuda)
+        d = _scale_by_lbfgs(gc, card, xc).cpu()
+        gap = float(torch.linalg.norm(d - d_ref) / torch.linalg.norm(d_ref))
+        assert gap < 1e-12, (k, gap)
+        assert card.count == cpu.count == k + 1
+        assert card.params is xc and card.updates is gc
+        x = x + 0.5 * d_ref
+    assert mb.LAUNCHES["lbfgs_direction"] == before + 60
 
 
 # ---------------------------------------------------------------------------

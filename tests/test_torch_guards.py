@@ -2,6 +2,7 @@
 tpinn import), builds no PyTorch extension, refuses to run silently on the
 CPU, and keeps its build output out of git."""
 
+import ctypes
 import os
 import re
 import subprocess
@@ -138,6 +139,46 @@ def test_kernel_module_imports_build_nothing():
 
     assert build.last_build() is None
     assert build.NVCC_FLAGS[:2] == ("-gencode", "arch=compute_90a,code=sm_90a")
+
+
+_C_TYPES = {"int": ctypes.c_int, "double": ctypes.c_double,
+            "long long": ctypes.c_longlong}
+
+
+def _extern_c_functions(text):
+    """{name: [ctypes type of each parameter]} of the ``int`` functions in
+    a source's ``extern "C"`` blocks (every pointer a ``c_void_p``)."""
+    out = {}
+    for block in re.findall(r'extern "C" \{(.*?)\}  // extern "C"', text,
+                            re.S):
+        for name, params in re.findall(r"^int\s+(\w+)\(([^)]*)\)", block,
+                                       re.M):
+            out[name] = [
+                ctypes.c_void_p if "*" in p
+                else _C_TYPES[" ".join(p.split()[:-1]).replace("const ", "")]
+                for p in params.split(",")]
+    return out
+
+
+@pytest.mark.parametrize("source", sorted(
+    f for f in os.listdir(os.path.join(_REPO, "tpinn_torch", "kernels", "csrc"))
+    if f.endswith(".cu")))
+def test_kernel_source_is_built_and_bound(source):
+    """Every CUDA source is built (``build.SOURCES``) through its plain C
+    interface, and every entry point of that interface has the ctypes
+    signature ``build`` gives it, argument by argument: a mismatch would
+    pass a pointer or an int wrongly, and nothing here can call the kernel
+    to find out."""
+    from tpinn_torch.kernels import build
+
+    assert source in build.SOURCES
+    with open(os.path.join(build.CSRC, source)) as f:
+        fns = _extern_c_functions(f.read())
+    stem = os.path.splitext(source)[0] + "_"
+    bound = {k: v for k, v in build._SIGNATURES.items() if k.startswith(stem)}
+    assert fns and set(fns) == set(bound), (sorted(fns), sorted(bound))
+    for name, types in fns.items():
+        assert types == bound[name], name
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):

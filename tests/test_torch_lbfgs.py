@@ -8,8 +8,9 @@ the dtypes of optax's scalars matter).
   failure paths (not a descent direction, no interval found, a non-finite
   region, every trial non-finite): the same step size at rtol 1e-12 after
   the same number of trials;
-* the direction (``_scale_by_lbfgs``) against ``optax.scale_by_lbfgs`` over
-  a sequence that wraps the ring (memory 3, 7 updates) at rtol 1e-13;
+* the direction (``_scale_by_lbfgs``, negated) against
+  ``optax.scale_by_lbfgs`` over a sequence that wraps the ring (memory 3,
+  7 updates) at rtol 1e-13;
 * the direction and the line search chained as ``optax.lbfgs`` in float32,
   where optax keeps the weights and some scalars in float64;
 * the round against tpinn's ``minimize(pb, "jax", "L-BFGS")`` on the
@@ -166,7 +167,7 @@ def test_direction_matches_optax_over_a_wrapped_ring(dtype):
         g = rng.normal(size=n).astype(dtype)
         x = (x + 0.3 * rng.normal(size=n)).astype(dtype)
         uj, sj = tx.update(jnp.asarray(g), sj, jnp.asarray(x))
-        ut = _scale_by_lbfgs(torch.tensor(g), st, torch.tensor(x))
+        ut = -_scale_by_lbfgs(torch.tensor(g), st, torch.tensor(x))
         assert ut.dtype == getattr(torch, dtype)
         rtol = 1e-13 if dtype == "float64" else 1e-5
         np.testing.assert_allclose(ut.numpy(), np.asarray(uj), rtol=rtol,
@@ -211,7 +212,7 @@ def test_float32_chain_matches_optax_lbfgs():
         u, sj = opt.update(g, sj, xj, value=v, grad=g, value_fn=fj)
         xj = optax.apply_updates(xj, u)
         vt, gt = vg(xt) if lst.value_nonfinite else (lst.value, lst.grad)
-        d = -1.0 * _scale_by_lbfgs(gt, lb, xt)
+        d = _scale_by_lbfgs(gt, lb, xt)
         upd, lst = ls.update(d, lst, xt, value=vt, grad=gt,
                              value_and_grad_fn=vg)
         xt = xt + upd

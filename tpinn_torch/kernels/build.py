@@ -24,7 +24,7 @@ from typing import Dict, Optional
 _HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_HERE, "csrc")
 SOURCES = ("ns_residual.cu", "poisson_residual.cu", "taylor_bundle.cu",
-           "roofline_probe.cu")
+           "roofline_probe.cu", "lbfgs_direction.cu")
 HEADERS = ("taylor_mlp.cuh", "ptx.cuh")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)), ".cache",
                          "tpinn_torch")
@@ -34,6 +34,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _D = ctypes.c_double
+_L = ctypes.c_longlong
 # entry point -> argtypes; every pointer (device, host array, stream) is a
 # c_void_p so that ctypes never truncates it to a 32-bit int
 _SIGNATURES = {
@@ -62,6 +63,8 @@ _SIGNATURES = {
                           _P],
     "roofline_probe_f64": [_I, _I, _I, _I, _I, _P, _P, _P, _P],
     "roofline_probe_f32": [_I, _I, _I, _I, _I, _P, _P, _P, _P],
+    "lbfgs_direction_f64": [_P] * 9 + [_L, _I, _I, _P],
+    "lbfgs_direction_f32": [_P] * 9 + [_L, _I, _I, _P],
 }
 
 

@@ -31,7 +31,8 @@ Beside each public function sits its plain PyTorch version (``*_plain``),
 built on :func:`tpinn_torch.operators.mlp_taylor_batched` and autograd.  A
 tensor on the CPU takes the plain version; a CUDA tensor launches the kernel
 or raises.  ``LAUNCHES`` counts the launches of each kernel (one per wrapper
-call that launches it).  A call of kernels 1-4 checks its tensors, looks up
+call that launches it), the L-BFGS direction's (``lbfgs_direction.py``)
+too.  A call of kernels 1-4 checks its tensors, looks up
 the plan of its shape (computed once: tile, grid, shared bytes), makes one
 allocation for the block partials and the outputs, and launches once;
 ``tile_layout`` and ``plan_points`` mirror the plan on the host, for the
@@ -63,7 +64,8 @@ ITEMSIZE = {torch.float32: 4, torch.float64: 8}
 
 LAUNCHES: Dict[str, int] = {"ns_residual_bwd": 0, "ns_residual_fwd": 0,
                              "poisson_residual_bwd": 0,
-                             "poisson_residual_fwd": 0, "taylor_bundle": 0}
+                             "poisson_residual_fwd": 0, "taylor_bundle": 0,
+                             "lbfgs_direction": 0}
 _PLANS: Dict[tuple, object] = {}
 _TICKETS: Dict[tuple, torch.Tensor] = {}
 
@@ -315,7 +317,9 @@ def _ticket(x: torch.Tensor, stream: int) -> torch.Tensor:
 _RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
 
 
-def _stream(index: int) -> int:
+def raw_stream(index: int) -> int:
+    """PyTorch's current stream of CUDA device ``index``, as the raw handle
+    a kernel's C interface takes (kernels 1-5 and the L-BFGS direction)."""
     if _RAW_STREAM is not None:
         return _RAW_STREAM(index)
     return torch.cuda.current_stream(index).cuda_stream
@@ -325,7 +329,7 @@ def _call(x: torch.Tensor, fn, *args) -> int:
     """Call a launcher on the batch's device with PyTorch's current stream
     appended."""
     index = x.device.index
-    stream = _stream(index)
+    stream = raw_stream(index)
     if index == torch.cuda.current_device():
         return fn(*args, _ticket(x, stream).data_ptr(), stream)
     with torch.cuda.device(index):
@@ -864,7 +868,7 @@ def _bundle_launch(params, x: torch.Tensor, widths: List[int], dim: int):
     index = x.device.index
     args = (x.data_ptr(), w_ptrs, b_ptrs, plan.w_arr, L, int(x.shape[1]), dim,
             int(x.shape[0]), plan.P, plan.G, plan.smem, plan.streamed,
-            buf.data_ptr(), _stream(index))
+            buf.data_ptr(), raw_stream(index))
     if index == torch.cuda.current_device():
         rc = plan.fn(*args)
     else:

@@ -53,6 +53,7 @@ import torch
 
 from tpinn_torch import sharding
 from tpinn_torch.history import LOG_STRIDE
+from tpinn_torch.kernels.lbfgs_direction import lbfgs_direction
 from tpinn_torch.linesearch import ScaleByZoomLinesearch
 from tpinn_torch.losses import LossMeanSquares
 from tpinn_torch.optimizers import Adam, Optimizer
@@ -562,16 +563,12 @@ def _precondition_by_lbfgs(updates, diff_params_memory, diff_updates_memory,
     return vec
 
 
-def _scale_by_lbfgs(updates: torch.Tensor, state: LBFGSState,
-                    params: torch.Tensor):
-    """``optax.scale_by_lbfgs``'s update (with ``scale_init_precond``, as
-    ``optax.lbfgs`` sets it): store the newest difference pair
-    at slot (count − 1) % m (zeros at count 0), scale the identity by
-    ⟨Δu, Δw⟩/‖Δu‖² (min(1, 1/‖u‖) at count 0), then the two-loop product.
-    Returns the preconditioned updates; ``state`` moves on in place."""
-    m = state.weights_memory.shape[0]
-    memory_idx = state.count % m
-    prev_memory_idx = (state.count - 1) % m
+def _store_pair(updates: torch.Tensor, state: LBFGSState,
+                params: torch.Tensor) -> torch.Tensor:
+    """The plain version's first half: the newest difference pair and its
+    weight stored at slot (count − 1) % m (zeros at count 0); returns the
+    identity scale ⟨Δu, Δw⟩/‖Δu‖² (min(1, 1/‖u‖) at count 0)."""
+    prev_memory_idx = (state.count - 1) % state.weights_memory.shape[0]
     if state.count > 0:
         diff_params = params - state.params
         diff_updates = updates - state.updates
@@ -587,19 +584,38 @@ def _scale_by_lbfgs(updates: torch.Tensor, state: LBFGSState,
     state.weights_memory[prev_memory_idx] = weight
     if state.count > 0:
         denominator = torch.dot(diff_updates, diff_updates)
-        identity_scale = torch.where(
+        return torch.where(
             denominator > 0.0,
             vdot / torch.where(denominator > 0.0, denominator, 1.0), 1.0)
+    norm = torch.sqrt(torch.dot(updates, updates))
+    return torch.clamp_max(1.0 / norm, 1.0)
+
+
+def _scale_by_lbfgs(updates: torch.Tensor, state: LBFGSState,
+                    params: torch.Tensor):
+    """The descent direction of ``optax.lbfgs``: ``optax.scale_by_lbfgs``'s
+    update (with ``scale_init_precond``, as ``optax.lbfgs`` sets it),
+    negated, as ``optax.lbfgs`` does before its line search.  Stores the newest difference pair
+    at slot (count − 1) % m (zeros at count 0), scales the identity by
+    ⟨Δu, Δw⟩/‖Δu‖² (min(1, 1/‖u‖) at count 0), then takes the two-loop
+    product; ``state`` moves on in place.  A CUDA vector takes the one
+    launch of ``kernels.lbfgs_direction``; a CPU one its plain version,
+    ``_store_pair`` and ``_precondition_by_lbfgs``."""
+    if updates.is_cuda:
+        out = lbfgs_direction(
+            updates, params, state.updates, state.params,
+            state.diff_params_memory, state.diff_updates_memory,
+            state.weights_memory, state.count)
     else:
-        norm = torch.sqrt(torch.dot(updates, updates))
-        identity_scale = torch.clamp_max(1.0 / norm, 1.0)
-    precond = _precondition_by_lbfgs(
-        updates, state.diff_params_memory, state.diff_updates_memory,
-        state.weights_memory, identity_scale, memory_idx)
+        identity_scale = _store_pair(updates, state, params)
+        out = -1.0 * _precondition_by_lbfgs(
+            updates, state.diff_params_memory, state.diff_updates_memory,
+            state.weights_memory, identity_scale,
+            state.count % state.weights_memory.shape[0])
     state.count += 1
     state.params = params
     state.updates = updates
-    return precond
+    return out
 
 
 # optax.lbfgs's memory in the JAX package's round (tpinn/optimize.py:200)
@@ -655,7 +671,7 @@ def _minimize_jax_lbfgs(pb: OptimizationProblem, num_epochs: int,
         else:
             value, grad = ls_state.value, ls_state.grad
         with span("lbfgs.direction"):
-            d = -1.0 * _scale_by_lbfgs(grad, lbfgs, x)
+            d = _scale_by_lbfgs(grad, lbfgs, x)
         if timed:
             _sync(device)
             part["direction"] = time.perf_counter() - tick
