@@ -1,24 +1,27 @@
 """The comparison that decides ``correct``: the program's first steps of the
-timed round against the plain reference's from the same inputs, and for an
-L-BFGS round also the state its warm-up round ends in.
+timed round against the plain reference's from the same inputs, and for a
+round kind with a late state (``benchmark/rounds/``) also the state its
+warm-up round ends in.  The round kinds fill the records; this module names
+no method.
 
 The numbers, each held to its limit (``limits/<cell>.json``, which names
 the cell's numbers):
 
 * ``loss_gap``: the largest relative gap between the losses of the two
-  runs, step by step (for L-BFGS evaluation by evaluation, line-search
-  trials included; a different count of evaluations reads inf);
+  runs, evaluation by evaluation (a line search's trials included; a
+  different count of evaluations reads inf);
 * ``grad_gap``: the first gradient as the optimizer got it, by the worst
   leaf: |norm(program) - norm(reference)| over the larger of the
   reference leaf's norm and the median leaf's norm;
 * ``change_gap``: the same of the parameters' change over the steps,
   over the leaves whose reference gradient is at least a thousandth of the
   median leaf's (a leaf that no loss moves moves by round-off alone);
-* ``dir_gap`` (L-BFGS): the warm-up round's last direction, worked out
-  from its last step as (x_now - x_prev) / eta, against the reference's
-  two-loop over the program's ring of pairs past its wrap, from the same
-  gradient: norm of the difference over the reference's norm;
-* ``late_grad_gap`` (L-BFGS): that gradient, the one the program's state
+* ``dir_gap`` (the late state of an L-BFGS round): the warm-up round's
+  last direction, worked out from its last step as (x_now - x_prev) / eta,
+  against the reference's two-loop over the program's ring of pairs past
+  its wrap, from the same gradient: norm of the difference over the
+  reference's norm;
+* ``late_grad_gap`` (the same): that gradient, the one the program's state
   holds for x_prev, against the reference's at x_prev, by the worst leaf
   as ``grad_gap``.
 """

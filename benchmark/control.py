@@ -9,10 +9,12 @@ size (the benchmark's runs do not run this):
 
 Each is compared with the float64 reference by the numbers of
 ``benchmark.check``, on each seed, beside the program's own readings from
-the run's set-up (the check steps and, for L-BFGS, the warm-up round's
-last iteration: the control there is the reference's two-loop and
-gradient in float32; the half batch changes the gradient alone).  A state
-left unchanged reads 1 in ``change_gap`` and needs no run.
+the run's set-up: the check steps and, where the timed round's kind has a
+late state, the warm-up round's last iteration (for L-BFGS the control
+there is the reference's two-loop and gradient in float32; the half batch
+changes the gradient alone).  Both references are the round kinds' own
+(``benchmark/rounds/``), found as a run finds them.  A state left unchanged
+reads 1 in ``change_gap`` and needs no run.
 
     python3 -m benchmark.control --workload poiseuille_flow.adam.n4m \
         --seeds 11,12,13
@@ -39,17 +41,17 @@ def readings(cell_name: str, seed: int, device, cfg_override=None) -> dict:
                                      cfg_override=cfg_override)
     harness.free_program(state, device)
     cfg, traffic, inputs = state["cfg"], state["traffic"], state["inputs"]
-    ref_mod, theta0, late = state["ref_mod"], state["theta0"], state["late"]
+    theta0, late = state["theta0"], state["late"]
     out = {"workload": cell_name, "seed": seed}
     t0 = time.perf_counter()
-    ref = harness._reference(cfg, traffic, ref_mod, inputs, device)
-    late_ref = (harness._late_reference(cfg, ref_mod, inputs, late, device)
+    ref = harness.reference(state, device)
+    late_ref = (harness.late_reference(state, device)
                 if late is not None else None)
     out["reference_s"] = time.perf_counter() - t0
     out["program"] = check.gaps(state["prog_record"], ref, theta0)
     if late is not None:
-        out["program"].update(check.late_gaps(harness._late_program(late),
-                                              late_ref))
+        out["program"].update(check.late_gaps(
+            state["round_kind"].late_program(late), late_ref))
     variants = {
         "control_float32": dict(dtype=torch.float32),
         "fault_half_batch": dict(n_rows=inputs["n_pde_total"] // 2),
@@ -58,11 +60,11 @@ def readings(cell_name: str, seed: int, device, cfg_override=None) -> dict:
         variants["fault_no_exchange"] = dict(n_rows=cfg["n_pde"],
                                              n_mean=inputs["n_pde_total"])
     for name, kw in variants.items():
-        rec = harness._reference(cfg, traffic, ref_mod, inputs, device, **kw)
+        rec = harness.reference(state, device, **kw)
         out[name] = check.gaps(rec, ref, theta0)
         if late is not None:
-            out[name].update(check.late_gaps(harness._late_reference(
-                cfg, ref_mod, inputs, late, device, **kw), late_ref))
+            out[name].update(check.late_gaps(
+                harness.late_reference(state, device, **kw), late_ref))
     return out
 
 

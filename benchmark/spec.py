@@ -1,9 +1,10 @@
 """What a run reads, found by name: BENCHMARK.json at the root of the
 checkout, a cell's configuration (``configs/<config>.json``), its traffic
 (``workloads/<traffic>.json``), its correctness limits
-(``limits/<cell>.json``) and the reader of each per-layer metric
-(``metrics/<metric>.py``).  A later cell, configuration or metric is a new
-file and a new entry; nothing here names one."""
+(``limits/<cell>.json``), the reader of each per-layer metric
+(``metrics/<metric>.py``) and the kind of each round its traffic runs
+(``rounds/<method>.py``).  A later cell, configuration, metric or round
+kind is a new file and a new entry; nothing here names one."""
 
 from __future__ import annotations
 
@@ -15,6 +16,7 @@ from typing import List
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
+ROUNDS = os.path.join(HERE, "rounds")
 
 
 def _json(path: str) -> dict:
@@ -57,14 +59,29 @@ def metrics(bench: dict, cell_name: str, trace: bool) -> List[dict]:
             if cell_name in m.get("workloads", [cell_name])]
 
 
-def reader(metric_name: str) -> ModuleType:
-    """``metrics/<name>.py``, loaded by path (a name may hold dots)."""
-    path = os.path.join(HERE, "metrics", metric_name + ".py")
-    mod_spec = importlib.util.spec_from_file_location(
-        "benchmark.metrics." + metric_name.replace(".", "_"), path)
+def _load(path: str, name: str) -> ModuleType:
+    mod_spec = importlib.util.spec_from_file_location(name, path)
     module = importlib.util.module_from_spec(mod_spec)
     mod_spec.loader.exec_module(module)
     return module
+
+
+def reader(metric_name: str) -> ModuleType:
+    """``metrics/<name>.py``, loaded by path (a name may hold dots)."""
+    return _load(os.path.join(HERE, "metrics", metric_name + ".py"),
+                 "benchmark.metrics." + metric_name.replace(".", "_"))
+
+
+def round_kind(method: str) -> ModuleType:
+    """``rounds/<method, lower-cased>.py``, loaded by path (a method may
+    hold a dash); what it provides is in ``rounds/__init__.py``."""
+    name = method.lower()
+    path = os.path.join(ROUNDS, name + ".py")
+    if not os.path.isfile(path):
+        raise LookupError(f"no round kind for the method {method!r}: "
+                          f"{path} does not exist")
+    return _load(path, "benchmark.rounds."
+                 + name.replace("-", "_").replace(".", "_"))
 
 
 def problem_modules(cfg: dict):

@@ -4,8 +4,7 @@ per-layer readers take from them.
 
 The traced window runs from the start of its first device operation to
 the end of its last.  Device-busy time is the union of the device
-operations' intervals (the arithmetic of the program's
-``profiling._union_us``, copied).  An idle gap is an interval of the
+operations' intervals (``union_us``).  An idle gap is an interval of the
 window in which no device operation ran; it is named by the innermost
 host event at its middle (on the card a CUDA runtime call such as
 ``cudaLaunchKernel`` or ``cudaStreamSynchronize``), or "host python" where
