@@ -1,6 +1,7 @@
 """The CUDA kernels on the card (skipped where there is none): the NS
 kernels 1-2, the Poisson kernels 3-4 and the Taylor-bundle kernel 5 against
-their plain versions (the main widths, widths that the tile layout pads,
+their plain versions (the main widths from 1,000 to 4,194,304 points, widths
+that the tile layout pads,
 d_in 3, ragged and masked batches; kernel 5 also with dim 1-3, a one-layer
 net and streamed weights), bit-identical repeats, the forward MSEs equal to
 the backward's, float32 against float64, one device kernel per call, and a
@@ -77,7 +78,8 @@ def _plain_grads(params, x, phys, norm, gbar, n_valid, n_mean):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("d_in,n,n_valid", [(2, 1000, None), (2, 4099, 4000),
-                                            (3, 1000, None)])
+                                            (3, 1000, None),
+                                            (2, 1 << 20, None)])
 def test_kernels_match_plain_on_card(cuda, d_in, n, n_valid):
     """Both kernels against their plain versions at the reference's bars,
     and bit-identical repeat calls."""
@@ -153,7 +155,8 @@ def _poisson_case(n, seed, device, widths=(2, 20, 20, 20, 1)):
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,n_valid,normalization", [(200, None, 1.0),
                                                      (4099, 4000, 1.0),
-                                                     (200, None, 3.0)])
+                                                     (200, None, 3.0),
+                                                     (1 << 20, None, 1.0)])
 def test_poisson_kernels_match_plain_on_card(cuda, n, n_valid, normalization):
     """Kernels 3 and 4 against their plain versions at the reference's
     bars; repeat calls bit-identical; kernel 4's MSE equals kernel 3's."""
@@ -323,6 +326,110 @@ def test_one_device_kernel_per_call(cuda):
                 break
         assert len(kernels) == 5, (name, [e.name for e in kernels])
         assert all("residual_kernel" in e.name for e in kernels), name
+
+
+def _kernel_run(kind, n, dtype, device):
+    """Kernels 1/2 (ns) or 3/4 (poisson) at n points: one backward and one
+    forward call, each one launch, the backward repeated bit for bit and
+    the forward's MSEs bit-equal to it.  Returns (params, inputs, flat
+    dparams, mses, loss)."""
+    if kind == "ns":
+        params, x, phys, norm = _case(2, n, 37, device)
+        gbar = torch.tensor(W3, dtype=torch.float64, device=device)
+        params = [{k: t.to(dtype) for k, t in p.items()} for p in params]
+        x, gbar = x.to(dtype), gbar.to(dtype)
+        inputs = (x, phys, norm)
+        bwd = lambda: mb.ns_residual_bwd(params, x, phys, norm, gbar,
+                                         with_loss=True)
+        fwd = lambda: mb.ns_residual_fwd(params, x, phys, norm)
+    else:
+        params, x, f = _poisson_case(n, 41, device)
+        gbar = torch.tensor([2.0], dtype=dtype, device=device)
+        params = [{k: t.to(dtype) for k, t in p.items()} for p in params]
+        x, f = x.to(dtype), f.to(dtype)
+        inputs = (x, f)
+        bwd = lambda: mb.poisson_residual_bwd(params, x, f, gbar,
+                                              with_loss=True)
+        fwd = lambda: mb.poisson_residual_fwd(params, x, f)
+    key = f"{kind}_residual"
+    before = dict(mb.LAUNCHES)
+    dp, mses, loss = bwd()
+    m_fwd = fwd()
+    assert mb.LAUNCHES[key + "_bwd"] == before[key + "_bwd"] + 1
+    assert mb.LAUNCHES[key + "_fwd"] == before[key + "_fwd"] + 1
+    dp2, mses2, loss2 = bwd()
+    flat = [t for p in dp for t in (p["kernel"], p["bias"])]
+    assert torch.equal(loss, loss2) and torch.equal(mses, mses2)
+    assert all(torch.equal(a, b) for a, b in
+               zip(flat, [t for p in dp2 for t in (p["kernel"], p["bias"])]))
+    assert torch.equal(m_fwd, mses)
+    return params, inputs, flat, mses, loss
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,n", [("ns", 1000), ("ns", 1 << 20),
+                                    ("poisson", 1000), ("poisson", 1 << 20)])
+def test_float32_against_float64_both_heads_on_card(cuda, kind, n):
+    """Kernels 1-4 in float32 (FFMA tiles) against float64 (m16n8k8 tiles
+    of two streams) at 1,000 and 1,048,576 points: the MSEs at 1e-5, the
+    gradients at the float32 test's 1e-5 of the largest at 1,000 points
+    and at 1e-4 at 1,048,576 (summed over 1M points in float32 they drift
+    1.8e-5 of the largest from float64 on the H100, with the m8n8k4 tile
+    as with this one); in each
+    dtype repeats bit-identical, the forward MSEs bit-equal to the
+    backward's, one launch a call."""
+    _, _, got, mses, _ = _kernel_run(kind, n, torch.float64, cuda)
+    _, _, got32, m32, _ = _kernel_run(kind, n, torch.float32, cuda)
+    torch.testing.assert_close(m32.double(), mses, rtol=1e-5, atol=0)
+    bound = 1e-5 if n <= 10_000 else 1e-4
+    scale = max(float(t.abs().max()) for t in got)
+    for a, b in zip(got32, got):
+        assert float((a.double() - b).abs().max()) <= bound * scale
+
+
+def _plain_in_blocks(kind, params, inputs, gbar, block=1 << 18):
+    """The plain version's MSEs and the gradients of gbar·MSEs over the
+    whole batch (the mean over all its points), summed over blocks of
+    points so that the autograd graph of one block is held at a time."""
+    x = inputs[0]
+    n = int(x.shape[0])
+    leaves = [{k: p[k].detach().clone().requires_grad_(True)
+               for k in ("kernel", "bias")} for p in params]
+    flat = [t for p in leaves for t in (p["kernel"], p["bias"])]
+    mses, grads = 0.0, [torch.zeros_like(t) for t in flat]
+    for i in range(0, n, block):
+        if kind == "ns":
+            m = mb.ns_residual_mse_plain(leaves, x[i:i + block], *inputs[1:],
+                                         None, n)
+        else:
+            m = mb.poisson_residual_mse_plain(leaves, x[i:i + block],
+                                              inputs[1][i:i + block], 1.0,
+                                              None, n)
+        g = torch.autograd.grad((gbar * m).sum(), flat, materialize_grads=True)
+        mses = mses + m.detach()
+        grads = [a + b for a, b in zip(grads, g)]
+    return mses, grads
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["ns", "poisson"])
+def test_kernels_at_benchmark_shape_on_card(cuda, kind):
+    """At the benchmark's 4,194,304 points (16-point tiles), float64:
+    one launch a call, repeats bit-identical, the forward MSEs bit-equal
+    to the backward's, and the MSEs and gradients against the plain
+    version (in blocks of points) at the reference's bars."""
+    n = 1 << 22
+    params, inputs, got, mses, _ = _kernel_run(kind, n, torch.float64, cuda)
+    widths = [2, 32, 32, 32, 3] if kind == "ns" else [2, 20, 20, 20, 1]
+    plan = mb.residual_plan(f"{kind}_residual", True, inputs[0], widths, n, n)
+    assert plan.P == 16
+    gbar = (torch.tensor(W3, dtype=torch.float64, device=cuda) if kind == "ns"
+            else torch.tensor([2.0], dtype=torch.float64, device=cuda))
+    ref_m, ref_g = _plain_in_blocks(kind, params, inputs, gbar)
+    torch.testing.assert_close(mses.reshape(-1), ref_m.reshape(-1),
+                               rtol=1e-11, atol=0)
+    for a, b in zip(got, ref_g):
+        torch.testing.assert_close(a, b, rtol=1e-9, atol=1e-12)
 
 
 def _bundle_case(d_in, d_out, n, seed, device, widths=(32, 32, 32)):

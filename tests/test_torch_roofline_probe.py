@@ -124,13 +124,14 @@ def test_wrapper_checks_and_counts_nothing_on_the_cpu():
 
 
 def test_expected_sass_counts():
-    """Per instance: the float64 dot job's 8 DMMA (m8n8k4) per stream, the
-    gram's C/8 DMMA (m16n8k8) per stream, the fma chains' DFMA, one rep
-    each; float32 a whole number of the unrolled steps' FFMA; no DMMA in
+    """Per instance: the float64 dot job's 4 steps of an m16n8k8 DMMA per
+    pair of streams and two m8n8k4 for an odd S's last stream, the gram's
+    C/8 DMMA (m16n8k8) per stream, the fma chains' DFMA, one rep each; float32 a whole number of the unrolled steps' FFMA; no DMMA in
     float32 and no HMMA (TF32) anywhere; and one rep's instructions give the
     probe's FLOPs."""
     assert rp.expected_sass("fwd_dot", "float64", 6, 8) == {"HMMA": 0,
-                                                           "DMMA": 48}
+                                                           "DMMA": 12}
+    assert rp.expected_sass("fwd_dot", "float64", 5, 8)["DMMA"] == 16
     assert rp.expected_sass("gram_dot", "float64", 5, 32)["DMMA"] == 20
     assert rp.expected_sass("fwd_dot", "float32", 5, 8) == {
         "HMMA": 0, "DMMA": 0, "FFMA": (20, 640)}
@@ -156,8 +157,10 @@ def test_expected_sass_counts():
     for S, C in ((5, 8), (6, 32)):
         f64 = {b: rp.expected_sass(b, "float64", S, C) for b in rp.BODIES}
         jobs64 = (C // 8) * 4
-        assert jobs64 * f64["fwd_dot"]["DMMA"] * 512 == rp.work("fwd_dot", C,
-                                                                 S, 1)
+        pairs, odd = S // 2, S % 2  # m16n8k8 2048 flops, m8n8k4 512
+        assert f64["fwd_dot"]["DMMA"] == 4 * (pairs + 2 * odd)
+        assert jobs64 * 4 * (pairs * 2048 + odd * 2 * 512) == rp.work(
+            "fwd_dot", C, S, 1)
         assert 8 * f64["gram_dot"]["DMMA"] * 2048 == rp.work("gram_dot", C, S,
                                                                1)
         assert 256 * f64["vpu_fma"]["DFMA"] * 2 == rp.work("vpu_fma", C, S, 1)

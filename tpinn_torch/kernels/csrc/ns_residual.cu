@@ -29,8 +29,9 @@
 //     in shared memory, widths padded to multiples of 8 with zero weights;
 //   * per hidden layer one phase: each warp job takes 8 points x 8 neurons
 //     and runs the products Z_s = A_s·W of all S streams as independent
-//     DMMA chains (mma.sync m8n8k4 on the float64 tensor cores) sharing W's
-//     operand, then the tanh-Taylor epilogue in registers; backward, one
+//     DMMA chains sharing W's operand (mma.sync m16n8k8 on the float64
+//     tensor cores, two streams as its 16 rows; an odd S's last stream on
+//     m8n8k4), then the tanh-Taylor epilogue in registers; backward, one
 //     phase per layer: the same stream-grouped jobs for dA = DZ·Wᵀ followed
 //     by the previous layer's cotangent rule in registers, and beside them
 //     dW += Aᵀ·DZ over the tile's rows (m16n8k8 DMMA tiles) into

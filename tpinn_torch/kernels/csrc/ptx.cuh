@@ -21,17 +21,18 @@ __device__ __forceinline__ void dmma_8x8x4(double& d0, double& d1, double a,
       : "d"(a), "d"(b), "d"(c0), "d"(c1));
 }
 
-// D = A·B + C on the float64 tensor cores, one 16x8x8 tile per warp
+// D = A·B + D on the float64 tensor cores, one 16x8x8 tile per warp
 // (`SM90_16x8x8_F64F64F64F64_TN` in CUTLASS).  With g = t/4, q = t%4, lane t
 // holds A(g, q), A(g+8, q), A(g, q+4), A(g+8, q+4); B(q, g), B(q+4, g); and
-// C/D(g, 2q), (g, 2q+1), (g+8, 2q), (g+8, 2q+1).
-__device__ __forceinline__ void dmma_16x8x8(double* c, double a0, double a1,
+// D(g, 2q), (g, 2q+1), (g+8, 2q), (g+8, 2q+1) as d0-d3.
+__device__ __forceinline__ void dmma_16x8x8(double& d0, double& d1, double& d2,
+                                            double& d3, double a0, double a1,
                                             double a2, double a3, double b0,
                                             double b1) {
   asm volatile(
       "mma.sync.aligned.m16n8k8.row.col.f64.f64.f64.f64 {%0, %1, %2, %3}, "
       "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+d"(c[0]), "+d"(c[1]), "+d"(c[2]), "+d"(c[3])
+      : "+d"(d0), "+d"(d1), "+d"(d2), "+d"(d3)
       : "d"(a0), "d"(a1), "d"(a2), "d"(a3), "d"(b0), "d"(b1));
 }
 

@@ -7,8 +7,9 @@
 // a kernel that does nothing else, at the port's precisions and tiles:
 //
 //   fwd      S independent chains a <- (W^T a)·1e-3 per stream, W (32, 32);
-//            float64: warp jobs of 8 points x 8 columns x all S streams, one
-//            DMMA m8n8k4 per stream and k-step (the residual kernels'
+//            float64: warp jobs of 8 points x 8 columns x all S streams,
+//            streams s and s+1 as the 16 rows of one DMMA m16n8k8 per 8 of
+//            K, an odd S's last stream on two m8n8k4 (the residual kernels'
 //            StreamTile); float32: 8 points x 16 columns of IEEE FFMA
 //   gram     per stream g += a·a^T (the dW contraction over the tile's
 //            points), a <- 0.999·a; out = broadcast(sum_s g_s[:, 0]) + 0·s;
@@ -85,11 +86,20 @@ template <int S, int C> struct Dot<double, S, C> {
     const double* ap = a + (p0 + g) * kLd + q;
     const double* bp = wm + q * kLd + c0 + g;
 #pragma unroll
-    for (int k = 0; k < kW; k += 4) {
-      const double bv = bp[k * kLd];
+    for (int k = 0; k < kW; k += 8) {
+      const double b0 = bp[k * kLd], b1 = bp[(k + 4) * kLd];
 #pragma unroll
-      for (int s = 0; s < S; ++s)
-        dmma_8x8x4(c[s][0], c[s][1], ap[s * C * kLd + k], bv, c[s][0], c[s][1]);
+      for (int s = 0; s < S; s += 2) {
+        const double* as = ap + s * C * kLd + k;
+        if (s + 1 < S) {
+          const double* at = as + C * kLd;
+          dmma_16x8x8(c[s][0], c[s][1], c[s + 1][0], c[s + 1][1], as[0], at[0],
+                      as[4], at[4], b0, b1);
+        } else {
+          dmma_8x8x4(c[s][0], c[s][1], as[0], b0, c[s][0], c[s][1]);
+          dmma_8x8x4(c[s][0], c[s][1], as[4], b1, c[s][0], c[s][1]);
+        }
+      }
     }
 #pragma unroll
     for (int s = 0; s < S; ++s)
@@ -172,8 +182,9 @@ template <int S, int C> struct Gram<double, S, C> {
       for (int k = 0; k < C; k += 8) {
         const double* r0 = as + (k + q) * kLd;
         const double* r1 = as + (k + q + 4) * kLd;
-        dmma_16x8x8(acc[s], r0[i0 + g], r0[i0 + g + 8], r1[i0 + g],
-                    r1[i0 + g + 8], r0[j0 + g], r1[j0 + g]);
+        dmma_16x8x8(acc[s][0], acc[s][1], acc[s][2], acc[s][3], r0[i0 + g],
+                    r0[i0 + g + 8], r1[i0 + g], r1[i0 + g + 8], r0[j0 + g],
+                    r1[j0 + g]);
       }
     }
   }

@@ -18,8 +18,8 @@
 // zeros and the stream buffers are never zeroed.  Layer 0 is in closed form
 // (value x·W0 + b0; the tangent rows are rows of W0; the second-order rows
 // zero).  Every later layer is one phase of stream-grouped warp jobs
-// (StreamTile: 8 points x 8 neurons x all S streams, S chains of DMMA m8n8k4
-// on the float64 tensor cores that share W's operand; IEEE FFMA register
+// (StreamTile: 8 points x 8 neurons x all S streams, float64 DMMA m16n8k8
+// chains of two streams each that share W's operand; IEEE FFMA register
 // tiles in float32, no TF32), followed in registers by the tanh-Taylor
 // epilogue or, at the head, by the bias and a scatter of the tile's outputs
 // into output order; consecutive threads then write the tile's three spans

@@ -9,8 +9,8 @@
 //   * the shared-memory layout of one block (`Layout`, mirrored by
 //     tile_layout in tpinn_torch/kernels/mlp_bundle.py);
 //   * warp-tile matrix products: DMMA tiles on the float64 tensor cores
-//     (m16n8k8, and m8n8k4 for the stream-grouped layer products), register
-//     tiles of IEEE FFMA in float32 (no TF32);
+//     (m16n8k8; the stream-grouped layer products stack two streams in one
+//     m16n8k8 tile), register tiles of IEEE FFMA in float32 (no TF32);
 //   * the one-pass kernel `residual_kernel<H, BWD>`: a block walks tiles of
 //     P points and keeps every layer's Taylor streams of a tile as one matrix
 //     with stream-major rows (row = s·P + p; value, one gradient stream per
@@ -172,7 +172,8 @@ struct Tile<double> {
     const double* bp = b + q * bk + g * bn;
     const int s4a = 4 * ak, s4b = 4 * bk;
     for (int k = 0; k < K; k += 8, a0 += 2 * s4a, a1 += 2 * s4a, bp += 2 * s4b)
-      dmma_16x8x8(c, a0[0], a1[0], a0[s4a], a1[s4a], bp[0], bp[s4b]);
+      dmma_16x8x8(c[0], c[1], c[2], c[3], a0[0], a1[0], a0[s4a], a1[s4a], bp[0],
+                  bp[s4b]);
   }
 };
 
@@ -243,11 +244,19 @@ __device__ int gemm(T* c, int cm, int cn, const T* a, int am, int ak,
 // so the per-neuron Taylor rules run in registers right after the product.
 // Lane t holds point t/4 (a lane past the tile's last point reads that
 // point's rows, and its results are not used) and the columns col(t, v);
-// streams outside [s_lo, s_hi) are skipped (their C stays as given).
+// streams outside [s_lo, s_hi) are skipped (their C stays as given; in
+// float64 a skipped stream that shares its DMMA with a stream in the range
+// gets its rows' product added, so its rows must hold zeros, as the head's
+// dead cotangent streams do).
 template <typename T>
 struct StreamTile;
 
-// float64: 8 points x 8 columns, one 8x8x4 DMMA per stream and k-step.
+// float64: 8 points x 8 columns.  Streams s and s+1 of the 8 points are
+// the 16 rows of one m16n8k8 DMMA, whose rate on the H100 is twice
+// m8n8k4's (63.8 against 32.8 TFLOP/s, operands in registers); an odd S's
+// last stream takes two m8n8k4.  So 8 of K cost S/2 m16n8k8 where one
+// m8n8k4 per stream and k-step would cost 2S, in the same k order.  K is a
+// multiple of 8.
 template <>
 struct StreamTile<double> {
   static constexpr int CT = 8, NV = 2;
@@ -256,14 +265,28 @@ struct StreamTile<double> {
   __device__ static void run(double (&c)[S][NV], const double* a, int am, int ss,
                              const double* b, int bk, int bn, int K, int lane,
                              int p_left, int s_lo, int s_hi, int) {
-    const double* ap = a + min(lane >> 2, p_left - 1) * am + (lane & 3);
-    const double* bp = b + (lane & 3) * bk + (lane >> 2) * bn;
-    for (int k = 0; k < K; k += 4) {
-      const double bv = bp[k * bk];
+    const int g = lane >> 2, q = lane & 3;
+    const double* ap = a + min(g, p_left - 1) * am + q;
+    const double* bp = b + q * bk + g * bn;
+    // (rolled: unrolled, the operands of two steps spill the backward
+    // residual kernels past their 128 registers)
+#pragma unroll 1
+    for (int k = 0; k < K; k += 8) {
+      const double b0 = bp[k * bk], b1 = bp[(k + 4) * bk];
 #pragma unroll
-      for (int s = 0; s < S; ++s)
-        if (s >= s_lo && s < s_hi)
-          dmma_8x8x4(c[s][0], c[s][1], ap[s * ss + k], bv, c[s][0], c[s][1]);
+      for (int s = 0; s < S; s += 2) {
+        const int t = s + 1 < S ? s + 1 : s;
+        if (t < s_lo || s >= s_hi) continue;
+        const double* as = ap + s * ss + k;
+        const double* at = ap + t * ss + k;
+        if (t != s) {
+          dmma_16x8x8(c[s][0], c[s][1], c[t][0], c[t][1], as[0], at[0], as[4],
+                      at[4], b0, b1);
+        } else {
+          dmma_8x8x4(c[s][0], c[s][1], as[0], b0, c[s][0], c[s][1]);
+          dmma_8x8x4(c[s][0], c[s][1], as[4], b1, c[s][0], c[s][1]);
+        }
+      }
     }
   }
 };

@@ -33,7 +33,8 @@ tensor on the CPU takes the plain version; a CUDA tensor launches the kernel
 or raises.  ``LAUNCHES`` counts the launches of each kernel (one per wrapper
 call that launches it), the L-BFGS direction's (``lbfgs_direction.py``)
 too.  A call of kernels 1-4 checks its tensors, looks up
-the plan of its shape (computed once: tile, grid, shared bytes), makes one
+the plan of its shape (``residual_plan``, computed once: tile, grid, shared
+bytes), makes one
 allocation for the block partials and the outputs, and launches once;
 ``tile_layout`` and ``plan_points`` mirror the plan on the host, for the
 fit checks and the tests.  A kernel-5 call does the same with one
@@ -230,10 +231,13 @@ class _Plan:
                  "two_over_n", "sizes", "shapes")
 
 
-def _plan(kind: str, bwd: bool, x: torch.Tensor, widths: List[int],
-          n_eff: int, n_mean: int) -> _Plan:
-    """The cached plan of a call shape; raises for a dtype or net that the
-    kernels do not take (checked once per shape)."""
+def residual_plan(kind: str, bwd: bool, x: torch.Tensor, widths: List[int],
+                  n_eff: int, n_mean: int) -> _Plan:
+    """The cached plan of a call shape of kernels 1-4 (``kind``
+    "ns_residual" or "poisson_residual", backward or forward, on the
+    batch's device and dtype; ``P`` its points per tile, ``G`` its grid);
+    raises for a dtype or net that the kernels do not take (checked once
+    per shape)."""
     key = (kind, x.device.index, x.dtype, tuple(widths), n_eff, n_mean, bwd)
     plan = _PLANS.get(key)
     if plan is not None:
@@ -348,8 +352,8 @@ def _launch(bwd: bool, params, x, physics, norm, gbar, n_valid, n_mean,
     n_eff = n if n_valid is None else min(n, int(n_valid))
     if n_eff <= 0:
         return _empty_sums(bwd, params, x)
-    plan = _plan("ns_residual", bwd, x, widths, n_eff,
-                 n if n_mean is None else int(n_mean))
+    plan = residual_plan("ns_residual", bwd, x, widths, n_eff,
+                         n if n_mean is None else int(n_mean))
     _check_tensors(params, x, "ns_residual")
     G, n_acc, L = plan.G, plan.n_acc, plan.L
     buf = torch.empty(G * n_acc + n_acc + 1, dtype=x.dtype, device=x.device)
@@ -563,8 +567,8 @@ def _poisson_launch(bwd: bool, params, x, f, normalization, gbar, n_valid,
     widths = _check_poisson_layout(params, x, f)
     n = int(x.shape[0])
     n_eff = n if n_valid is None else min(n, int(n_valid))
-    plan = _plan("poisson_residual", bwd, x, widths, n_eff,
-                 n if n_mean is None else int(n_mean))
+    plan = residual_plan("poisson_residual", bwd, x, widths, n_eff,
+                         n if n_mean is None else int(n_mean))
     _check_tensors(params, x, "poisson_residual")
     if f.device != x.device or f.dtype != x.dtype or f.dim() != 1 or \
             not f.is_contiguous():

@@ -7,8 +7,9 @@ Builds a copy of csrc/ under .cache/tpinn_torch/probe/ whose residual kernel
 reads ``clock64()`` after every block barrier of block 0 and adds the cycles
 since the previous barrier to a per-barrier counter (barriers counted from
 the top of each tile), then runs kernels 1 and 3 (float64 and float32) at
-the main shapes and at 1,048,576 points and prints, per call, the cycles per
-tile spent before each barrier.  For a net of four Dense layers the
+the main shapes and at 1,048,576 points, and in float64 at the benchmark's
+4,194,304, and prints, per call, the cycles per tile spent before each
+barrier.  For a net of four Dense layers the
 barriers of a tile are: the tile's inputs, layer 0, layers 1 and 2 (the
 product and epilogue of each), the head product, the residual rows, the
 backward phases of layers 3, 2, 1 and 0, and the tile's end; the slots past
@@ -267,9 +268,10 @@ def main():
     print(f"card: {torch.cuda.get_device_name(0)}")
     try:
         for dtype in (torch.float64, torch.float32):
-            for kind, n in (("ns", 1000), ("ns", 1 << 20), ("poisson", 200),
-                            ("poisson", 1 << 20)):
-                if dtype == torch.float32 and n < 10_000:
+            for kind, n in (("ns", 1000), ("ns", 1 << 20), ("ns", 1 << 22),
+                            ("poisson", 200), ("poisson", 1 << 20),
+                            ("poisson", 1 << 22)):
+                if dtype == torch.float32 and n != 1 << 20:
                     continue
                 rng = np.random.default_rng(7)
                 if kind == "ns":

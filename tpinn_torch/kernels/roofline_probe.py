@@ -334,8 +334,9 @@ def expected_sass(body: str, dtype: str, streams: int, chunk: int) -> dict:
     """What an instance's SASS must hold, per op: an exact count, or
     (unit, most) for a whole number of unrolled steps of ``unit`` up to
     ``most``.  The reps loop is not unrolled, so a float64 instance holds
-    one rep's DMMA (m8n8k4 for the dot chains, 8 k-steps per stream;
-    m16n8k8 for the gram tiles, C/8 per stream) and DFMA (the fma chains).
+    one rep's DMMA (the dot chains' 4 steps of 8 of K, each an m16n8k8 per
+    pair of streams and two m8n8k4 for an odd S's last; m16n8k8 for the
+    gram tiles, C/8 per stream) and DFMA (the fma chains).
     The float32 dot job's 32 k-steps (4 FFMA per stream each) and the
     gram's C points (a 2 x 2 tile per stream each) are loops that nvcc
     unrolls as it sees fit.  No DMMA in float32, no HMMA (TF32) anywhere;
@@ -347,7 +348,8 @@ def expected_sass(body: str, dtype: str, streams: int, chunk: int) -> dict:
         exp["DMMA"] = 0
     fmas = (S - 1) * WIDTH * C // (32 * (C // 8) * (4 if f64 else 2))
     if body == "fwd_dot":
-        exp.update({"DMMA": 8 * S} if f64 else {"FFMA": (4 * S, 128 * S)})
+        exp.update({"DMMA": WIDTH // 8 * (S // 2 + 2 * (S % 2))} if f64
+                   else {"FFMA": (4 * S, 128 * S)})
     elif body == "gram_dot":
         exp.update({"DMMA": S * C // 8, "DFMA": 0} if f64
                    else {"FFMA": (4 * S, 4 * S * C)})
